@@ -10,26 +10,40 @@ Phases, one JSON object per line on stdout:
    csrc`` with nvcc (sm_90a) and reports the seconds and the compiler's
    register and spill report;
 3. kernel — each kernel wrapper at the shapes the 512 px main path gives it,
-   in bf16, against its plain PyTorch version run in fp32 on the same
-   bf16-valued inputs: forward outputs and the input gradient for a random
-   cotangent, relative Frobenius and max-abs errors; each error must be
-   within its stated limit and at most 1.5x the plain version's own bf16
-   error plus 1e-3 (``style_transfer_tpu_torch/ops/kernels/tolerances.py``);
-   for each, the fwd+bwd device time per call (profiler, kernels only) and
-   the median of 20 CUDA-event-timed calls (which also counts host launch
-   gaps);
-4. parity — the fused objective's loss terms and image gradient at a small
+   and the single-conv wrappers at the shapes of the large-image path (the
+   block-2 segment of the 256x4096 scale, the block-4 front of the 512x8192
+   scale, conv5_1's ``gram_tail`` there, and a forced two-slice W-sliced
+   single against the unsliced one), in bf16, against the plain PyTorch
+   version run in fp32 on the same bf16-valued inputs: forward outputs and
+   the input gradient for a random cotangent, relative Frobenius and max-abs
+   errors; each error must be within its stated limit and at most 1.5x the
+   plain version's own bf16 error plus 1e-3
+   (``style_transfer_tpu_torch/ops/kernels/tolerances.py``); for each, the
+   fwd+bwd device time per call (profiler, kernels only) and the median of
+   20 CUDA-event-timed calls (which also counts host launch gaps). Block 1
+   and TV also run once at the 512x8192 panorama's full size, the largest
+   tensors of the port (the index-width check of ``csrc/common.cuh``);
+4. segment forms — the fused pair against the pair of singles at the five
+   two-conv segments of the 2048x2048 scale (effective width 2048, where
+   the dispatch switches to singles): both times, and their agreement;
+5. parity — the fused objective's loss terms and image gradient at a small
    size, kernels in bf16 on the card against the CPU's fp32 plain path;
-5. stylize — ``StyleTransfer().stylize()`` on 512x512 inputs with the
-   256->512 ladder: every kernel's launch count must grow, the per-step loss
+6. stylize — ``StyleTransfer().stylize()`` on 512x512 inputs with the
+   256->512 ladder: every kernel of that path must launch, the per-step loss
    must be finite, fall within each scale and follow the curve of a witness
    run — the same stylize on the plain path in fp32 (``use_fused=False``,
    the path the CPU tests hold to the JAX package) — and the output must be
-   finite in [0, 1] with shape (512, 512, 3); the steady it/s per scale is
-   reported.
+   finite in [0, 1] with shape (512, 512, 3); the steady it/s and the peak
+   device memory per scale are reported;
+7. large — the same checks for a 512x8192 panorama over the 128x2048 ->
+   256x4096 -> 512x8192 ladder, where every two-conv segment runs as
+   singles and the last scale's conv5_1 as ``gram_tail``: the singles and
+   ``gram_tail`` must launch and the conv pair must not.
 
-Then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and as the
-last line ``{"ok": true, "device": {...}}``. Any failed phase raises: the
+Each stylize phase sets every launch count to 0 just before it runs and
+reads them all just after. Then a ``{"kernels": [...]}`` summary line (each
+kernel's launches from the phase whose path runs it), the nvidia-smi line,
+and as the last line ``{"ok": true, "device": {...}}``. Any failed phase raises: the
 script exits nonzero and prints no ok line. Without a CUDA device it exits
 with code 2 before doing anything else.
 """
@@ -71,15 +85,36 @@ TOL_GRAD_COS = 0.999
 # 1.7e-3 (512 px); cuDNN's bf16 path: 7.3e-3 at both. Limit: 3e-2.
 TOL_CURVE = 3e-2
 
+# kernel -> (the TPU kernel it replaces, its CUDA sources, the stylize phase
+# whose path runs it)
 KERNEL_META = {
     "block1_packed": ("style_transfer_tpu/ops/pallas/block1_packed.py:634",
-                      ["csrc/conv3x3.cu", "csrc/gram.cu"]),
+                      ["csrc/conv3x3.cu", "csrc/gram.cu"], "stylize"),
     "conv_pair": ("style_transfer_tpu/ops/pallas/conv_pair.py:395",
-                  ["csrc/conv3x3.cu", "csrc/gram.cu"]),
+                  ["csrc/conv3x3.cu", "csrc/gram.cu"], "stylize"),
     "conv_gram": ("style_transfer_tpu/ops/pallas/conv_gram.py:178",
-                  ["csrc/conv3x3.cu", "csrc/gram.cu"]),
-    "tv_loss": ("style_transfer_tpu/ops/pallas/epilogue.py:316", ["csrc/tv.cu"]),
+                  ["csrc/conv3x3.cu", "csrc/gram.cu"], "stylize"),
+    "tv_loss": ("style_transfer_tpu/ops/pallas/epilogue.py:316", ["csrc/tv.cu"], "stylize"),
+    "conv_single": ("style_transfer_tpu/ops/pallas/conv_single.py:250/:321",
+                    ["csrc/conv3x3.cu", "csrc/gram.cu"], "large"),
+    "gram_tail": ("style_transfer_tpu/ops/pallas/conv_single.py:250/:321",
+                  ["csrc/conv3x3.cu", "csrc/gram.cu"], "large"),
 }
+
+# kernel -> its module's launch counter attribute
+COUNTERS = {
+    "block1_packed": ("block1", "launches"), "conv_pair": ("conv_pair", "launches"),
+    "conv_gram": ("conv_gram", "launches"), "tv_loss": ("epilogue", "launches"),
+    "conv_single": ("conv_single", "launches"), "gram_tail": ("conv_single", "gram_tail_launches"),
+}
+
+
+def _counters():
+    import importlib
+
+    return {name: getattr(importlib.import_module(f"style_transfer_tpu_torch.ops.kernels.{mod}"),
+                          attr)
+            for name, (mod, attr) in COUNTERS.items()}
 
 
 def _rel(a, b) -> float:
@@ -127,14 +162,16 @@ def _device_ms(torch, fn, reps: int = 5) -> float:
 
 
 def kernel_checks(torch, params):
-    """Phase 3: every kernel wrapper at the 512 px main-path shapes, in bf16
+    """Phase 3: every kernel wrapper at the shapes its path gives it, in bf16
     (TV in fp32), against its plain version run in fp32 on the same
     bf16-valued inputs, weights and cotangents. The plain version in bf16 is
     held against the same reference, for scale, and timed against the
-    kernel. Returns per-kernel summaries."""
+    kernel. Returns per-kernel summaries (errors of every case; times of the
+    cases on a stylize path)."""
     from style_transfer_tpu_torch.ops.kernels import block1 as B1
     from style_transfer_tpu_torch.ops.kernels import conv_gram as CG
     from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
+    from style_transfer_tpu_torch.ops.kernels import conv_single as CS
     from style_transfer_tpu_torch.ops.kernels import epilogue as EP
     from style_transfer_tpu_torch.ops.kernels.tolerances import (
         TOL_ACT, TOL_DX, TOL_GRAM, TOL_TV, within,
@@ -166,12 +203,13 @@ def kernel_checks(torch, params):
         fn = CP.conv_pair_plain if plain else CP.conv_pair
         return lambda x, *w: fn(x, *w, pool=pool, gram=gram)
 
-    # (kernel, label, x, kernel fn, plain fn, weights, cotangents, output tols, dtype)
+    # (kernel, label, x, kernel fn, plain fn, weights, cotangents, output
+    # tols, dtype, on a stylize path: its times go into the summary)
     hw = 512 * 512
     cases = [(
         "block1_packed", "1x512x512x3 -> pool1 + gram64", randn(1, 512, 512, 3),
         B1.block1_packed, B1.block1_plain, weights("conv1_1", "conv1_2"),
-        (randn(1, 256, 256, 64), randn(64, 64) * (hw / 64)), (TOL_ACT, TOL_GRAM), bf16,
+        (randn(1, 256, 256, 64), randn(64, 64) * (hw / 64)), (TOL_ACT, TOL_GRAM), bf16, True,
     )]
     pairs = [
         ("256x256 64->128 pool+gram", 256, 64, 128, True, True, ("conv2_1", "conv2_2")),
@@ -187,20 +225,65 @@ def kernel_checks(torch, params):
             cts, tols = cts + (randn(cmid, cmid) * (s * s / cmid),), tols + (TOL_GRAM,)
         cases.append((
             "conv_pair", label, rand(1, s, s, cin), pair(pool, gram, False),
-            pair(pool, gram, True), weights(*names), cts, tols, bf16,
+            pair(pool, gram, True), weights(*names), cts, tols, bf16, True,
         ))
     cases.append((
         "conv_gram", "32x32 512->512 gram", rand(1, 32, 32, 512),
         CG.conv_gram, CG.conv_gram_plain, weights("conv5_1"),
-        (randn(512, 512) * (32 * 32 / 512),), (TOL_GRAM,), bf16,
+        (randn(512, 512) * (32 * 32 / 512),), (TOL_GRAM,), bf16, True,
     ))
     cases.append((
         "tv_loss", "1x512x512x3 fp32", rand(1, 512, 512, 3), EP.tv_loss, EP.tv_loss_plain,
-        [], (torch.ones((), device=dev),), (TOL_TV,), torch.float32,
+        [], (torch.ones((), device=dev),), (TOL_TV,), torch.float32, True,
+    ))
+
+    def single_plain(pool, gram):
+        return lambda x, k, b: CS.conv_single_plain(x, k, b, pool=pool, gram=gram)
+
+    # the singles of the large-image path, in every epilogue combination the
+    # dispatch uses: the block-2 segment of the 256x4096 scale (pool1 is
+    # 128x2048) and the block-4 front of the 512x8192 scale (pool3 is 32x512)
+    combos = [("gram", CS.single_gram, False, True), ("plain", CS.single_plain, False, False),
+              ("pool", CS.single_pool, True, False)]
+    for h, w, cin, cout, name in [(128, 2048, 64, 128, "conv2_1"), (32, 512, 256, 512, "conv4_1")]:
+        for what, fn, pool, gram in combos:
+            cts, tols = (randn(1, h // 2, w // 2, cout) if pool else randn(1, h, w, cout),), (TOL_ACT,)
+            if gram:
+                cts, tols = cts + (randn(cout, cout) * (h * w / cout),), tols + (TOL_GRAM,)
+            cases.append((
+                "conv_single", f"{h}x{w} {cin}->{cout} {what}", rand(1, h, w, cin), fn,
+                single_plain(pool, gram), weights(name), cts, tols, bf16, True,
+            ))
+    cases.append((
+        "gram_tail", "32x512 512->512 gram (conv5_1 of 512x8192)", rand(1, 32, 512, 512),
+        CS.gram_tail, lambda x, k, b: CS.conv_single_plain(x, k, b, pool=False, gram=True)[1],
+        weights("conv5_1"), (randn(512, 512) * (32 * 512 / 512),), (TOL_GRAM,), bf16, True,
+    ))
+    # the column window on the card: two W slices with halos, each Gram over
+    # its owned columns, against the plain version (and, below, the unsliced
+    # single)
+    wide = CS.make_wide_single(pool=False, gram=True, slices=2)
+    wide_x, wide_w = rand(1, 128, 2048, 64), weights("conv2_1")
+    wide_cts = (randn(1, 128, 2048, 128), randn(128, 128) * (128 * 2048 / 128))
+    cases.append((
+        "conv_single", "128x2048 64->128 gram, W-sliced slices=2", wide_x, wide,
+        single_plain(False, True), wide_w, wide_cts, (TOL_ACT, TOL_GRAM), bf16, False,
+    ))
+    # index width: block 1 and TV at the panorama's full size (block 1's
+    # activations are 512*8192*64 = 268 M elements, its Gram 4.19 M rows)
+    cases.append((
+        "block1_packed", "1x512x8192x3 -> pool1 + gram64 (index width)", randn(1, 512, 8192, 3),
+        B1.block1_packed, B1.block1_plain, weights("conv1_1", "conv1_2"),
+        (randn(1, 256, 4096, 64), randn(64, 64) * (512 * 8192 / 64)), (TOL_ACT, TOL_GRAM), bf16,
+        False,
+    ))
+    cases.append((
+        "tv_loss", "1x512x8192x3 fp32 (index width)", rand(1, 512, 8192, 3), EP.tv_loss,
+        EP.tv_loss_plain, [], (torch.ones((), device=dev),), (TOL_TV,), torch.float32, False,
     ))
 
     summary = {}
-    for name, label, x, k_fn, p_fn, ws, cts, tols, dtype in cases:
+    for name, label, x, k_fn, p_fn, ws, cts, tols, dtype, on_path in cases:
         def run(fn, dt):
             xr = x.to(dt).requires_grad_(True)
             outs = fn(xr, *ws)
@@ -234,13 +317,94 @@ def kernel_checks(torch, params):
             raise AssertionError(f"{name} [{label}] disagrees with its plain version: {bad}")
         agg = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
         agg["max_abs_err"] = max(agg["max_abs_err"], *(e["max_abs"] for e in errors))
-        agg["ms"] += ms
-        agg["plain_ms"] += plain_ms
+        if on_path:
+            agg["ms"] += ms
+            agg["plain_ms"] += plain_ms
+
+    # the W-sliced single against the unsliced single, both on the kernels
+    def fwd_bwd(fn):
+        xr = wide_x.to(bf16).requires_grad_(True)
+        outs = fn(xr, *wide_w)
+        (gx,) = torch.autograd.grad(outs, xr, grad_outputs=[c.to(o.dtype) for c, o in zip(wide_cts, outs)])
+        return list(outs) + [gx]
+
+    sliced, unsliced = fwd_bwd(wide), fwd_bwd(CS.single_gram)
+    torch.cuda.synchronize()
+    errors = [{"what": w, "rel": _rel(a, b), "max_abs": _max_abs(a, b), "tol": tol}
+              for w, a, b, tol in zip(("out0", "out1", "dx"), sliced, unsliced,
+                                      (TOL_ACT, TOL_GRAM, TOL_DX))]
+    emit({"phase": "kernel", "kernel": "conv_single",
+          "case": "W-sliced (slices=2) vs unsliced single, 128x2048 64->128 gram",
+          "errors": errors})
+    if any(e["rel"] > e["tol"] for e in errors):
+        raise AssertionError(f"the W-sliced single disagrees with the unsliced one: {errors}")
     return summary
 
 
+def segment_forms(torch, params):
+    """Phase 4: the fused pair against the pair of singles at the two-conv
+    segments of the 2048x2048 scale (effective width 2048, the first width
+    the dispatch gives to singles), fwd+bwd in bf16 on the same inputs and
+    cotangents: device ms (profiler) and event-timed medians, in turns on
+    one card, and the two forms' agreement."""
+    from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
+    from style_transfer_tpu_torch.ops.kernels import conv_single as CS
+    from style_transfer_tpu_torch.ops.kernels.tolerances import TOL_ACT, TOL_DX, TOL_GRAM
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf16 = torch.bfloat16
+    rows = []
+    segments = [
+        ("block2", 1024, 64, 128, True, True, ("conv2_1", "conv2_2")),
+        ("block3_front", 512, 128, 256, False, True, ("conv3_1", "conv3_2")),
+        ("block3_tail", 512, 256, 256, True, False, ("conv3_3", "conv3_4")),
+        ("block4_front", 256, 256, 512, False, True, ("conv4_1", "conv4_2")),
+        ("block4_tail", 256, 512, 512, True, False, ("conv4_3", "conv4_4")),
+    ]
+    for label, s, cin, cmid, pool, gram, names in segments:
+        ws = []
+        for n in names:
+            k = params[n]["kernel"].to(dev)
+            ws += [k.to(bf16).float(), (0.1 * torch.randn(k.shape[3], generator=gen, device=dev))]
+        x = torch.rand(1, s, s, cin, generator=gen, device=dev).to(bf16)
+        so = s // 2 if pool else s
+        cts = [torch.randn(1, so, so, cmid, generator=gen, device=dev).to(bf16)]
+        if gram:
+            cts.append(torch.randn(cmid, cmid, generator=gen, device=dev) * (s * s / cmid))
+        pair_fn = lambda xx, *w, p=pool, g=gram: CP.conv_pair(xx, *w, pool=p, gram=g)  # noqa: E731
+        singles_fn = CS.make_pair_of_singles(pool=pool, gram=gram)
+
+        def run(fn):
+            xr = x.clone().requires_grad_(True)
+            outs = fn(xr, *ws)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            (gx,) = torch.autograd.grad(outs, xr, grad_outputs=cts[: len(outs)])
+            return list(outs) + [gx]
+
+        a, b = run(pair_fn), run(singles_fn)
+        torch.cuda.synchronize()
+        tols = [TOL_ACT] + ([TOL_GRAM] if gram else []) + [TOL_DX]
+        rels = [_rel(u, v) for u, v in zip(b, a)]
+        t_p, t_s = [], []
+        for _ in range(2):  # pair, singles, pair, singles
+            t_p += _wall_ms(torch, lambda: run(pair_fn), reps=5)
+            t_s += _wall_ms(torch, lambda: run(singles_fn), reps=5)
+        row = {"phase": "segment_forms", "segment": label, "shape": list(x.shape), "cmid": cmid,
+               "eff": s * cmid // 64, "pair_ms": _device_ms(torch, lambda: run(pair_fn), reps=3),
+               "singles_ms": _device_ms(torch, lambda: run(singles_fn), reps=3),
+               "pair_wall_ms_median10": statistics.median(t_p),
+               "singles_wall_ms_median10": statistics.median(t_s),
+               "singles_vs_pair_rel": rels, "tol": tols}
+        emit(row)
+        rows.append(row)
+        if any(r > t for r, t in zip(rels, tols)):
+            raise AssertionError(f"{label}: the pair of singles disagrees with the pair: {rels}")
+    return rows
+
+
 def parity_check(torch, params, mean, std):
-    """Phase 4: the fused objective on the card (bf16 kernels) against the
+    """Phase 5: the fused objective on the card (bf16 kernels) against the
     CPU's fp32 plain chain — the path the CPU tests hold against JAX."""
     import numpy as np
 
@@ -278,44 +442,42 @@ def parity_check(torch, params, mean, std):
 
 def _stylize(torch, st, content, style, cfg):
     """One ``stylize()`` call: (output, per-scale per-step total losses,
-    MetricsRecorder summary with the scale sizes, seconds)."""
+    MetricsRecorder summary with the scale sizes and each scale's peak
+    device memory in MiB, seconds)."""
     from style_transfer_tpu_torch.utils.progress import MetricsRecorder
 
     rec = MetricsRecorder()
-    curves, sizes = {}, {}
+    curves, sizes, peak = {}, {}, {}
 
     def callback(ev):
         rec(ev)
         curves.setdefault(ev.scale_index, []).extend(float(v) for v in ev.losses["loss"])
         sizes[ev.scale_index] = list(ev.size)
+        peak[ev.scale_index] = max(peak.get(ev.scale_index, 0.0),
+                                   torch.cuda.max_memory_allocated() / 2**20)
+        if ev.iteration == ev.total_iterations:  # the next scale's peak starts afresh
+            torch.cuda.reset_peak_memory_stats()
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = st.stylize(content, style, cfg, callback=callback)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return out, curves, dict(rec.summary(), sizes=sizes), seconds
+    return out, curves, dict(rec.summary(), sizes=sizes, peak_mib=peak), seconds
 
 
-def stylize_check(torch, params, mean, std):
-    """Phase 5: the main path through the public API, with launch counts,
-    against a witness run of the plain fp32 path."""
+def stylize_check(torch, params, mean, std, *, phase, content, style, cfg, required, absent=()):
+    """Phases 6 and 7: one path through the public API, with every launch
+    count set to 0 just before it and read just after, against witness runs
+    of the plain path in fp32 and in bf16. ``required`` kernels must have
+    launched and ``absent`` ones must not. Returns the launch counts."""
     import dataclasses
 
     import numpy as np
 
-    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
-    from style_transfer_tpu_torch.ops.kernels import block1 as B1
-    from style_transfer_tpu_torch.ops.kernels import conv_gram as CG
-    from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
-    from style_transfer_tpu_torch.ops.kernels import epilogue as EP
+    from style_transfer_tpu_torch import StyleTransfer
 
-    counters = {"block1_packed": B1.launches, "conv_pair": CP.launches,
-                "conv_gram": CG.launches, "tv_loss": EP.launches}
-    r = np.random.RandomState(0)
-    content = r.rand(512, 512, 3).astype(np.float32)
-    style = r.rand(512, 512, 3).astype(np.float32)
-    cfg = StylizeConfig(size=512, min_scale=256, iterations=(20,), chunk_size=10)
-
+    counters = _counters()
     st = StyleTransfer(params, mean=mean, std=std, device="cuda")
     for c in counters.values():
         c.n = 0
@@ -325,24 +487,32 @@ def stylize_check(torch, params, mean, std):
     # witnesses: the plain path in fp32 (cuDNN, TF32 off) and in bf16
     plain = dataclasses.replace(cfg, use_fused=False)
     st32 = StyleTransfer(params, mean=mean, std=std, device="cuda", compute_dtype=torch.float32)
-    _, curves32, _, _ = _stylize(torch, st32, content, style, plain)
-    _, curves16, _, _ = _stylize(torch, st, content, style, plain)
+    _, curves32, summary32, _ = _stylize(torch, st32, content, style, plain)
+    _, curves16, summary16, _ = _stylize(torch, st, content, style, plain)
 
     def dev(a, b):  # largest per-step relative deviation of curve a from b
         return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
-    emit({"phase": "stylize", "sizes": summary["sizes"], "seconds": seconds, "launches": launches,
+    shape = (*cfg.end_size(content.shape[:2]), 3)
+    emit({"phase": phase, "sizes": summary["sizes"], "seconds": seconds, "launches": launches,
           "its_per_sec_steady": summary["per_scale_its_per_sec"],
           "chunks_counted": summary["per_scale_chunks_counted"],
+          "peak_mib": summary["peak_mib"],
+          "plain_fp32_its_per_sec_steady": summary32["per_scale_its_per_sec"],
+          "plain_bf16_its_per_sec_steady": summary16["per_scale_its_per_sec"],
+          "plain_bf16_peak_mib": summary16["peak_mib"],
           "loss_per_step": curves, "plain_fp32_loss_per_step": curves32,
           "plain_bf16_loss_per_step": curves16,
           "dev_from_fp32": {k: dev(curves[k], curves32[k]) for k in curves},
           "plain_bf16_dev_from_fp32": {k: dev(curves16[k], curves32[k]) for k in curves},
           "tol_curve": TOL_CURVE,
           "out_shape": list(out.shape), "out_min": float(out.min()), "out_max": float(out.max())})
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in required if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"{phase}: kernels never launched on the path: {missing}")
+    stray = [k for k in absent if launches[k] != 0]
+    if stray:
+        raise AssertionError(f"{phase}: kernels launched off their path: {stray}")
     # "Falls within each scale", per step: the largest loss of the scale's
     # last chunk is below the largest of its first chunk. The first step is
     # no baseline: with init="content" the content term is zero there, and
@@ -353,16 +523,16 @@ def stylize_check(torch, params, mean, std):
     n = cfg.chunk_size
     for k, v in curves.items():
         if not np.isfinite(v).all():
-            raise AssertionError(f"scale {k}: loss not finite: {v}")
+            raise AssertionError(f"{phase} scale {k}: loss not finite: {v}")
         if not max(v[-n:]) < max(v[:n]):
-            raise AssertionError(f"scale {k}: loss not falling within the scale: {v}")
+            raise AssertionError(f"{phase} scale {k}: loss not falling within the scale: {v}")
         if not dev(v, curves32[k]) <= TOL_CURVE:
             raise AssertionError(
-                f"scale {k}: loss curve departs from the plain fp32 path's by "
+                f"{phase} scale {k}: loss curve departs from the plain fp32 path's by "
                 f"{dev(v, curves32[k])} > {TOL_CURVE}"
             )
-    if out.shape != (512, 512, 3) or not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
-        raise AssertionError("stylize output has the wrong shape or values")
+    if out.shape != shape or not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        raise AssertionError(f"{phase}: stylize output has the wrong shape or values")
     return launches
 
 
@@ -392,19 +562,50 @@ def main() -> int:
               if "registers" in l or "spill" in l] if log.is_file() else []
     emit({"phase": "build", "seconds": seconds, "ptxas": report})
 
+    import numpy as np
+
+    from style_transfer_tpu_torch import StylizeConfig
+
     params, mean, std = random_fixture(0)
-    summary = kernel_checks(torch, params)
-    parity_check(torch, params, mean, std)
-    launches = stylize_check(torch, params, mean, std)
+    peak = {}
+
+    def measured(phase, fn):  # runs a phase and keeps its peak device memory
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        peak[phase] = torch.cuda.max_memory_allocated() / 2**20
+        return out
+
+    summary = measured("kernel", lambda: kernel_checks(torch, params))
+    measured("segment_forms", lambda: segment_forms(torch, params))
+    measured("parity", lambda: parity_check(torch, params, mean, std))
+    emit({"phase": "memory", "peak_mib": peak,
+          "note": "the stylize phases print their peak per scale"})
+    r = np.random.RandomState(0)
+    launches = {"stylize": stylize_check(
+        torch, params, mean, std, phase="stylize",
+        content=r.rand(512, 512, 3).astype(np.float32),
+        style=r.rand(512, 512, 3).astype(np.float32),
+        cfg=StylizeConfig(size=512, min_scale=256, iterations=(20,), chunk_size=10),
+        required=("block1_packed", "conv_pair", "conv_gram", "tv_loss"),
+    )}
+    r = np.random.RandomState(1)
+    launches["large"] = stylize_check(
+        torch, params, mean, std, phase="large",
+        content=r.rand(512, 8192, 3).astype(np.float32),
+        style=r.rand(512, 8192, 3).astype(np.float32),
+        cfg=StylizeConfig(size=(512, 8192), min_scale=2048, iterations=(20,), chunk_size=10),
+        required=("block1_packed", "conv_single", "gram_tail", "conv_gram", "tv_loss"),
+        absent=("conv_pair",),
+    )
 
     emit({"kernels": [
         {"name": name, "route": "cuda",
-         "source": "style_transfer_tpu_torch/" + KERNEL_META[name][1][0],
-         "sources": ["style_transfer_tpu_torch/" + s for s in KERNEL_META[name][1]],
-         "replaces": KERNEL_META[name][0], "launches": launches[name],
+         "source": "style_transfer_tpu_torch/" + sources[0],
+         "sources": ["style_transfer_tpu_torch/" + s for s in sources],
+         "replaces": replaces, "launches": launches[phase][name],
          "max_abs_err": summary[name]["max_abs_err"],
          "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
-        for name in KERNEL_META
+        for name, (replaces, sources, phase) in KERNEL_META.items()
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

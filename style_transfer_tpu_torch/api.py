@@ -9,19 +9,26 @@ optimizer steps in a Python loop and reads the per-step losses once per
 chunk.
 
 The objective keeps the JAX fused-chain dispatch (``api.py:644-918``):
-block 1 (``ops/kernels/block1.py``) -> block 2 (``block2.py``) -> block-3
-front/tail pairs -> block-4 front/tail pairs (``conv_pair.py``) -> the
-conv5_1 conv+Gram (``conv_gram.py``), plus the fused TV loss
-(``epilogue.py``), under the same structural gates (average pooling, the
-per-block layer conditions, even extents at every pool boundary, VGG-19 for
-blocks 3-4, ``deeper == ("conv5_1",)`` for the conv+Gram) and without the
-TPU ones (backend checks, ``vmem.py`` envelopes, mesh row gates). Block 4
+block 1 (``ops/kernels/block1.py``) -> block 2 -> block-3 front/tail
+segments -> block-4 front/tail segments -> the conv5_1 Gram tail, plus the
+fused TV loss (``epilogue.py``), under the same structural gates (average
+pooling, the per-block layer conditions, even extents at every pool
+boundary, VGG-19 for blocks 3-4, ``deeper == ("conv5_1",)`` for the Gram
+tail) and without the TPU-only ones (backend checks, mesh row gates). Each
+two-conv segment takes its form from the reference's size rule
+(``ops/kernels/dispatch.py``, JAX ``_seg_fn`` at ``api.py:723-746``): the
+fused pair (``block2.py``, ``conv_pair.py``) below effective width 2048,
+two singles (``conv_single.py``) from there on; conv5_1 runs
+``conv_gram.py`` up to effective width 2048 and ``conv_single.gram_tail``
+beyond it (``api.py:860-899``). Two departures from the reference's
+dispatch, both in ``dispatch.py``: block 1 stays on its kernel at every
+width, and the reference's W-sliced "wide" singles run unsliced. Block 4
 engages only when its whole block can chain (the JAX auto mode); the
-tail pair runs only when a deeper layer needs it — eager PyTorch has no
+tail segment runs only when a deeper layer needs it — eager PyTorch has no
 dead-code elimination to drop an unused kernel.
 
 Content and style targets are captured through the same chain under
-``torch.no_grad()`` (conv4_2 from the block-4 front pair, Grams from the
+``torch.no_grad()`` (conv4_2 from the block-4 front segment, Grams from the
 chain's Gram outputs), so on the GPU the kernels carry all of the main
 path's VGG work. The JAX package captures through plain XLA instead
 (``api.py:992-999``); on the CPU both sides run plain ops, so they agree.
@@ -55,6 +62,8 @@ from style_transfer_tpu_torch.ops.kernels import block1 as B1
 from style_transfer_tpu_torch.ops.kernels import block2 as B2
 from style_transfer_tpu_torch.ops.kernels import conv_gram as CG
 from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
+from style_transfer_tpu_torch.ops.kernels import conv_single as CS
+from style_transfer_tpu_torch.ops.kernels import dispatch
 from style_transfer_tpu_torch.ops.kernels import epilogue as EP
 from style_transfer_tpu_torch.optim import OptimizerSpec, make_step_fn
 from style_transfer_tpu_torch.schedule import _round_even, build_plan
@@ -110,6 +119,18 @@ def _style_size(style_hw, scale_hw, style_scale: float) -> Tuple[int, int]:
 
 def _even(t: torch.Tensor) -> bool:
     return t.shape[1] % 2 == 0 and t.shape[2] % 2 == 0
+
+
+def _segment(handoff: torch.Tensor, cin: int, cmid: int, *, pool: bool, gram: bool,
+             block2: bool = False):
+    """Kernel callable for one two-conv segment fed by ``handoff``, per
+    :func:`dispatch.segment_impl` (JAX ``_seg_fn``, ``api.py:723-746``)."""
+    impl = dispatch.segment_impl(handoff.shape[2], cin, cmid, pool=pool, gram=gram)
+    if impl == "singles":
+        return CS.make_pair_of_singles(pool=pool, gram=gram)
+    if block2:
+        return B2.block2_fused
+    return CP.pair_gram if gram else CP.pair_pool
 
 
 class StyleTransfer:
@@ -224,14 +245,17 @@ class StyleTransfer:
         start_block, handoff, start_conv = 2, pool1, 0
         y42 = None
         if self._block2_eligible(content_layers, style_layers) and _even(pool1):
-            pool2, g = B2.block2_fused(pool1, *self._weights("conv2_1", "conv2_2"))
+            b2 = _segment(pool1, 64, 128, pool=True, gram=True, block2=True)
+            pool2, g = b2(pool1, *self._weights("conv2_1", "conv2_2"))
             if "conv2_1" in style:
                 grams["conv2_1"] = g
             covered.add("conv2_1")
             start_block, handoff = 3, pool2
             if self._block3_eligible(content_layers, style_layers) and _even(pool2):
-                y32, g = CP.pair_gram(pool2, *self._weights("conv3_1", "conv3_2"))
-                pool3 = CP.pair_pool(y32, *self._weights("conv3_3", "conv3_4"))
+                b3f = _segment(pool2, 128, 256, pool=False, gram=True)
+                b3t = _segment(pool2, 256, 256, pool=True, gram=False)
+                y32, g = b3f(pool2, *self._weights("conv3_1", "conv3_2"))
+                pool3 = b3t(y32, *self._weights("conv3_3", "conv3_4"))
                 if "conv3_1" in style:
                     grams["conv3_1"] = g
                 covered.add("conv3_1")
@@ -242,18 +266,22 @@ class StyleTransfer:
                     and not (b4_tail & set(all_layers))
                     and _even(pool3)
                 ):
-                    y42, g = CP.pair_gram(pool3, *self._weights("conv4_1", "conv4_2"))
+                    b4f = _segment(pool3, 256, 512, pool=False, gram=True)
+                    y42, g = b4f(pool3, *self._weights("conv4_1", "conv4_2"))
                     if "conv4_1" in style:
                         grams["conv4_1"] = g
                     covered.update(("conv4_1", "conv4_2"))
                     start_block, handoff, start_conv = 4, y42, 2
                     if any(l not in covered for l in all_layers):
-                        pool4 = CP.pair_pool(y42, *self._weights("conv4_3", "conv4_4"))
+                        b4t = _segment(pool3, 512, 512, pool=True, gram=False)
+                        pool4 = b4t(y42, *self._weights("conv4_3", "conv4_4"))
                         covered.update(b4_tail)
                         start_block, handoff, start_conv = 5, pool4, 0
         deeper = tuple(l for l in all_layers if l not in covered)
         if deeper == ("conv5_1",) and start_block == 5 and "conv5_1" not in content_layers:
-            grams["conv5_1"] = CG.conv_gram(handoff, *self._weights("conv5_1"))
+            tail = (CG.conv_gram if dispatch.gram_tail_impl(handoff.shape[2], 512) == "conv_gram"
+                    else CS.gram_tail)
+            grams["conv5_1"] = tail(handoff, *self._weights("conv5_1"))
             deeper = ()
         feats: Dict[str, torch.Tensor] = {}
         if deeper:

@@ -4,6 +4,18 @@
 // the CUDA stream arrive as void*, sizes as int. Each entry point launches on
 // the caller's stream, allocates nothing, and returns cudaGetLastError() so
 // the Python wrapper can raise on a refused launch.
+//
+// Index widths. Sizes arrive as int; every element offset is computed in
+// size_t. What each kernel's indexing supports:
+//   conv3x3 (fwd, bwd-data): H <= 8 * 65535 = 524,280 rows and
+//     N <= 64 * 65535 output channels (gridDim.y / gridDim.z of its tiles),
+//     W and K < 2^31; the element count H*W*K is bounded only by memory.
+//   gram: M = H*W rows <= 2048 * 65535 = 134,215,680 (gridDim.z of its
+//     2048-row partials); gram_fs: M < 2^31 rows.
+//   tv: H*W*C elements in size_t, one row W*C < 2^31.
+// The largest tensors of a 512x8192 panorama (block 1: 512*8192*64 = 268 M
+// elements; Gram rows M = 4.19 M) sit far inside; chip_smoke.py runs block 1
+// and TV at that size against their plain versions.
 #pragma once
 
 #include <cuda_bf16.h>

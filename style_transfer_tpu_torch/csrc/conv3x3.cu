@@ -30,9 +30,15 @@
 //
 // Backward-data is the same loop over pre-flipped, pre-transposed weights
 // (the wrapper passes w_t[a][b][co][ci] = w[2-a][2-b][ci][co]), with a
-// prologue on the incoming cotangent (optional 2x2 unpool: x0.25, rows and
-// columns duplicated; optional int8-mask gate) and an epilogue (optional fp32
-// add of the Gram term r.S, optional ReLU gate r > 0, bf16 store).
+// prologue on the incoming cotangent and an epilogue on the sum. The pair
+// (conv_pair.py) gates after the taps: prologue = optional 2x2 unpool (x0.25,
+// rows and columns duplicated) and int8-mask gate; epilogue = optional fp32
+// add of the Gram term r.S, optional ReLU gate r > 0, bf16 store. The single
+// (conv_single.py, replacing conv_single.py::_bwd_kernel) gates before the
+// taps, from its own stored activation y: prologue = the optionally unpooled
+// cotangent (absent: zero), plus an fp32 term (the Gram term y.S), zeroed
+// where y <= 0, rounded once to bf16 (the TPU kernel's .astype at :195) and
+// staged as fp32.
 #include "common.cuh"
 
 namespace {
@@ -46,10 +52,13 @@ constexpr int IH = TH + 2;
 constexpr int IW = TW + 2;
 
 struct ConvArgs {
-  // input: (H, W, K) bf16, or (H/2, W/2, K) when unpool is set
+  // input: (H, W, K) bf16, or (H/2, W/2, K) when unpool is set; null reads
+  // as zero (a cotangent that autograd did not materialize)
   const bf16* x;
   const int8_t* in_mask;  // (H, W, K) gate on the input, or null
   int unpool;
+  const float* pre_add;   // (H, W, K) fp32 added to the staged input, or null
+  const bf16* pre_gate;   // (H, W, K): staged input zero where pre_gate <= 0, or null
   const bf16* w;          // (3, 3, K, N)
   // forward epilogue
   const bf16* bias;       // (N)
@@ -63,39 +72,65 @@ struct ConvArgs {
   int H, W, K, N;
 };
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 __device__ __forceinline__ float load1(const ConvArgs& a, int h, int w, int k) {
   if (h < 0 || h >= a.H || w < 0 || w >= a.W || k >= a.K) return 0.f;
-  const size_t src = a.unpool
-      ? ((size_t)(h >> 1) * (a.W >> 1) + (w >> 1)) * a.K + k
-      : ((size_t)h * a.W + w) * a.K + k;
-  float v = __bfloat162float(a.x[src]);
-  if (a.unpool) v *= 0.25f;
-  if (a.in_mask != nullptr && a.in_mask[((size_t)h * a.W + w) * a.K + k] == 0) v = 0.f;
+  const size_t pix = ((size_t)h * a.W + w) * a.K + k;
+  float v = 0.f;
+  if (a.x != nullptr) {
+    const size_t src = a.unpool ? ((size_t)(h >> 1) * (a.W >> 1) + (w >> 1)) * a.K + k : pix;
+    v = __bfloat162float(a.x[src]);
+    if (a.unpool) v *= 0.25f;
+  }
+  if (a.in_mask != nullptr && a.in_mask[pix] == 0) v = 0.f;
+  if (a.pre_add != nullptr) v += a.pre_add[pix];
+  if (a.pre_gate != nullptr && !(__bfloat162float(a.pre_gate[pix]) > 0.f)) v = 0.f;
+  if (a.pre_add != nullptr || a.pre_gate != nullptr) v = round_bf16(v);
   return v;
 }
 
 // Eight consecutive channels k..k+7 of one input pixel (K % 8 == 0).
 __device__ __forceinline__ void load8(const ConvArgs& a, int h, int w, int k, float* v) {
-  if (h < 0 || h >= a.H || w < 0 || w >= a.W) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = 0.f;
-    return;
-  }
-  const size_t src = a.unpool
-      ? ((size_t)(h >> 1) * (a.W >> 1) + (w >> 1)) * a.K + k
-      : ((size_t)h * a.W + w) * a.K + k;
-  st::load8_bf16(a.x + src, v);
-  if (a.unpool) {
+  for (int j = 0; j < 8; ++j) v[j] = 0.f;
+  if (h < 0 || h >= a.H || w < 0 || w >= a.W) return;
+  const size_t pix = ((size_t)h * a.W + w) * a.K + k;
+  if (a.x != nullptr) {
+    const size_t src = a.unpool ? ((size_t)(h >> 1) * (a.W >> 1) + (w >> 1)) * a.K + k : pix;
+    st::load8_bf16(a.x + src, v);
+    if (a.unpool) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] *= 0.25f;
+      for (int j = 0; j < 8; ++j) v[j] *= 0.25f;
+    }
   }
   if (a.in_mask != nullptr) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(a.in_mask + ((size_t)h * a.W + w) * a.K + k);
+    const uint2 raw = *reinterpret_cast<const uint2*>(a.in_mask + pix);
     const int8_t* m = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       if (m[j] == 0) v[j] = 0.f;
     }
+  }
+  if (a.pre_add != nullptr) {
+    const float4 lo = *reinterpret_cast<const float4*>(a.pre_add + pix);
+    const float4 hi = *reinterpret_cast<const float4*>(a.pre_add + pix + 4);
+    v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
+    v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
+  }
+  if (a.pre_gate != nullptr) {
+    float g[8];
+    st::load8_bf16(a.pre_gate + pix, g);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (!(g[j] > 0.f)) v[j] = 0.f;
+    }
+  }
+  if (a.pre_add != nullptr || a.pre_gate != nullptr) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = round_bf16(v[j]);
   }
 }
 
@@ -289,15 +324,20 @@ ST_EXPORT int st_conv3x3_fwd(const void* x, const void* w, const void* bias, voi
 }
 
 // Backward-data: out = [gate >] ([add +] conv3x3(prologue(dy), w_t)) with
-// prologue = [unpool] then [in_mask gate]; w_t holds the flipped, transposed
-// taps, so K is the cotangent's channel count and N the input's.
+// prologue = [unpool] then [in_mask gate] then [+ pre_add] then [pre_gate >]
+// (rounded to bf16 when pre_add or pre_gate is given); w_t holds the
+// flipped, transposed taps, so K is the cotangent's channel count and N the
+// input's. A null dy reads as zero.
 ST_EXPORT int st_conv3x3_bwd_data(const void* dy, const void* in_mask, int unpool,
+                                  const void* pre_add, const void* pre_gate,
                                   const void* w_t, const void* add, const void* gate,
                                   void* out, int H, int W, int K, int N, void* stream) {
   ConvArgs a = {};
   a.x = static_cast<const bf16*>(dy);
   a.in_mask = static_cast<const int8_t*>(in_mask);
   a.unpool = unpool;
+  a.pre_add = static_cast<const float*>(pre_add);
+  a.pre_gate = static_cast<const bf16*>(pre_gate);
   a.w = static_cast<const bf16*>(w_t);
   a.add = static_cast<const float*>(add);
   a.gate = static_cast<const bf16*>(gate);

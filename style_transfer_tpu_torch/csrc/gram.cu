@@ -1,12 +1,19 @@
 // Gram products on (M, C) bf16 activations with fp32 accumulation:
 //   st_gram     G = F^T F                 (forward Gram epilogue)
 //   st_gram_fs  F S, S a (C, C) matrix    (backward Gram term)
+// Both take an optional column window (W, clo, chi): row m of F is pixel
+// column m % W of an (H, W) image, and rows whose column lies outside
+// [clo, chi) add nothing to G and get a zero F S row. That is the gram_cols
+// ownership mask of conv_single.py::_fwd_kernel (:112-117) and
+// ::_bwd_kernel (:182-187): a W slice with halo columns counts only the
+// columns it owns. W = 0 means no window.
 //
 // Replaces the in-kernel Gram syrk and the y.S products of the TPU kernels
 //   style_transfer_tpu/ops/pallas/conv_pair.py::_fwd_kernel (acc_ref += f^T f)
 //   and ::_bwd_kernel (r1 @ S in post_b),
 //   style_transfer_tpu/ops/pallas/conv_gram.py::_fwd_kernel / _bwd_kernel,
-//   style_transfer_tpu/ops/pallas/block1_packed.py::_fwd_kernel / _bwd_kernel.
+//   style_transfer_tpu/ops/pallas/block1_packed.py::_fwd_kernel / _bwd_kernel,
+//   style_transfer_tpu/ops/pallas/conv_single.py::_fwd_kernel / _bwd_kernel.
 // The TPU kernels accumulate the Gram across their sequential grid in VMEM
 // scratch; Hopper blocks run in no order, so here each block sums a chunk of
 // rows into its own partial (C, C) tile and a second pass adds the partials
@@ -31,8 +38,19 @@ constexpr int GR = 32;    // rows staged per step (Gram)
 constexpr int FK = 16;    // reduction channels staged per step (F S)
 constexpr int GNT = 256;  // threads per block
 
+// Column window of the Gram rows (see the header); wcols <= 0: every row.
+struct Window {
+  int wcols, clo, chi;
+  __device__ __forceinline__ bool owns(int m) const {
+    if (wcols <= 0) return true;
+    const int c = m % wcols;
+    return c >= clo && c < chi;
+  }
+};
+
 __global__ void __launch_bounds__(GNT)
-gram_partial_kernel(const bf16* __restrict__ f, float* __restrict__ part, int M, int C, int rows) {
+gram_partial_kernel(const bf16* __restrict__ f, float* __restrict__ part, int M, int C, int rows,
+                    Window win) {
   __shared__ __align__(16) float a_s[GR][GT];
   __shared__ __align__(16) float b_s[GR][GT];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -50,7 +68,7 @@ gram_partial_kernel(const bf16* __restrict__ f, float* __restrict__ part, int M,
     for (int e = tid; e < GR * (GT / 8); e += GNT) {
       const int r = e / (GT / 8), c8 = (e % (GT / 8)) * 8, m = m0 + r;
       float va[8], vb[8];
-      if (m < m_end) {
+      if (m < m_end && win.owns(m)) {
         st::load8_bf16(f + (size_t)m * C + i0 + c8, va);
         st::load8_bf16(f + (size_t)m * C + j0 + c8, vb);
       } else {
@@ -97,7 +115,7 @@ __global__ void gram_reduce_kernel(const float* __restrict__ part, float* __rest
 // out32 = F S (fp32), or, when out16 is given, out16 = bf16(F > 0 ? F S : 0).
 __global__ void __launch_bounds__(GNT)
 gram_fs_kernel(const bf16* __restrict__ f, const bf16* __restrict__ s, float* __restrict__ out32,
-               bf16* __restrict__ out16, int M, int C) {
+               bf16* __restrict__ out16, int M, int C, Window win) {
   __shared__ __align__(16) float f_s[FK][GT];  // [k][m]
   __shared__ __align__(16) float s_s[FK][GT];  // [k][n]
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -114,7 +132,7 @@ gram_fs_kernel(const bf16* __restrict__ f, const bf16* __restrict__ s, float* __
       // F tile: 64 rows x 16 channels, stored transposed
       const int r = tid / (FK / 8), k8 = (tid % (FK / 8)) * 8, m = m0 + r;
       float v[8];
-      if (m < M) {
+      if (m < M && win.owns(m)) {
         st::load8_bf16(f + (size_t)m * C + k0 + k8, v);
       } else {
 #pragma unroll
@@ -166,13 +184,15 @@ gram_fs_kernel(const bf16* __restrict__ f, const bf16* __restrict__ s, float* __
 // Rows of F per partial sum; the wrapper sizes `part` as ceil(M / rows) x C x C.
 ST_EXPORT int st_gram_rows_per_chunk() { return 2048; }
 
-// out (C, C) fp32 = F^T F for F (M, C) bf16, C % 64 == 0.
-ST_EXPORT int st_gram(const void* f, void* part, void* out, int M, int C, void* stream) {
+// out (C, C) fp32 = F^T F for F (M, C) bf16, C % 64 == 0, over the rows in
+// the column window (wcols = 0: all rows).
+ST_EXPORT int st_gram(const void* f, void* part, void* out, int M, int C, int wcols, int clo,
+                      int chi, void* stream) {
   const int rows = st_gram_rows_per_chunk();
   const int nchunks = (M + rows - 1) / rows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   gram_partial_kernel<<<dim3(C / GT, C / GT, nchunks), GNT, 0, st>>>(
-      static_cast<const bf16*>(f), static_cast<float*>(part), M, C, rows);
+      static_cast<const bf16*>(f), static_cast<float*>(part), M, C, rows, Window{wcols, clo, chi});
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int cc = C * C;
@@ -182,11 +202,12 @@ ST_EXPORT int st_gram(const void* f, void* part, void* out, int M, int C, void* 
 }
 
 // F (M, C) bf16 times S (C, C) bf16, C % 64 == 0: fp32 into out32, or the
-// ReLU-gated bf16 result into out16 when out16 is not null.
+// ReLU-gated bf16 result into out16 when out16 is not null. Rows outside the
+// column window (wcols = 0: none) are zero.
 ST_EXPORT int st_gram_fs(const void* f, const void* s, void* out32, void* out16, int M, int C,
-                         void* stream) {
+                         int wcols, int clo, int chi, void* stream) {
   gram_fs_kernel<<<dim3((M + GT - 1) / GT, C / GT), GNT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(f), static_cast<const bf16*>(s), static_cast<float*>(out32),
-      static_cast<bf16*>(out16), M, C);
+      static_cast<bf16*>(out16), M, C, Window{wcols, clo, chi});
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,13 @@
 """Build and load the hand-written Hopper kernels (``style_transfer_tpu_torch/csrc``).
 
 The CUDA sources have a plain C interface, so they are compiled with ``nvcc``
-straight into one shared library and loaded with :mod:`ctypes` — no PyTorch
-headers, which keeps the build to seconds. The build runs once, at the first
-kernel launch, into ``style_transfer_tpu_torch/_build/`` (git-ignored); the
-library's file name carries a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one is reused.
+into one shared library and loaded with :mod:`ctypes` — no PyTorch headers,
+which keeps the build to seconds. Each source compiles in its own ``nvcc``
+process, all started together, and one more links the objects. The build
+runs once, at the first kernel launch, into ``style_transfer_tpu_torch/
+_build/`` (git-ignored); the library's file name carries a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused.
 
 There is no fallback: where ``nvcc`` or a CUDA device is missing,
 :func:`library` raises :class:`KernelBuildError`. The kernel wrappers call it
@@ -28,19 +30,18 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (every one returns a CUDA error code)
 _SIGNATURES = {
     "st_conv3x3_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "st_conv3x3_bwd_data": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "st_gram": [_P, _P, _P, _I, _I, _P],
-    "st_gram_fs": [_P, _P, _P, _P, _I, _I, _P],
+    "st_conv3x3_bwd_data": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "st_gram": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "st_gram_fs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "st_gram_rows_per_chunk": [],
     "st_tv_sse_grad": [_P, _P, _P, _P, _I, _I, _I, _P],
     "st_tv_blocks": [_I, _I],
@@ -79,7 +80,7 @@ def _sources() -> list:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for path in sorted(SOURCE_DIR.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -92,21 +93,41 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources if the hashed library is missing; returns its path.
-    The compiler's register/shared-memory report goes to ``<lib>.log``."""
+    One ``nvcc`` per source, all running at once, then one link. The
+    compilers' register/shared-memory reports go to ``<lib>.log``."""
     target = library_path()
     if target.is_file():
         return target
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    target.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, target)  # atomic: a concurrent build never sees a partial file
+    tag = f"{target.stem}.{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out[-4000:]}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise KernelBuildError("nvcc failed: " + "\n".join(failed))
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            raise KernelBuildError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
+        os.replace(tmp, target)  # atomic: a concurrent build never sees a partial file
+    finally:
+        target.with_suffix(".log").write_text("\n".join(log))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return target
 
 

@@ -83,71 +83,96 @@ def taps_transposed(w: torch.Tensor) -> torch.Tensor:
 
 
 def conv3x3_bwd_data(
-    dy: torch.Tensor, w_t: torch.Tensor, *, hw: Tuple[int, int], count: LaunchCount,
+    dy: Optional[torch.Tensor], w_t: torch.Tensor, *, hw: Tuple[int, int], count: LaunchCount,
     in_mask: Optional[torch.Tensor] = None, unpool: bool = False,
+    pre_add: Optional[torch.Tensor] = None, pre_gate: Optional[torch.Tensor] = None,
     add: Optional[torch.Tensor] = None, gate: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Transposed 3x3 SAME conv of a cotangent: (H, W, N) bf16 out of ``dy``
-    (H, W, K) — or (H/2, W/2, K) when ``unpool`` — with ``w_t`` from
-    :func:`taps_transposed`. Prologue: ``unpool`` (x0.25, duplicated rows and
-    columns), then the int8 ``in_mask`` gate. Epilogue: ``+ add`` (fp32), then
-    the ReLU gate ``gate > 0``, then the bf16 store."""
+    (H, W, K) — or (H/2, W/2, K) when ``unpool``; None reads as zero — with
+    ``w_t`` from :func:`taps_transposed`. Prologue, per staged element:
+    ``unpool`` (x0.25, duplicated rows and columns), the int8 ``in_mask``
+    gate, ``+ pre_add`` (fp32, (H, W, K)), zero where ``pre_gate`` (bf16,
+    (H, W, K)) <= 0, and one bf16 rounding when ``pre_add`` or ``pre_gate``
+    is given. Epilogue: ``+ add`` (fp32), then the ReLU gate ``gate > 0``,
+    then the bf16 store."""
     h, wd = hw
     k, n = w_t.shape[2], w_t.shape[3]
-    if unpool:
-        if h % 2 or wd % 2:
-            raise ValueError(f"unpooling needs even H and W, got {(h, wd)}")
-        _require(dy, "dy", torch.bfloat16, (h // 2, wd // 2, k))
-    else:
-        _require(dy, "dy", torch.bfloat16, (h, wd, k))
+    if unpool and (h % 2 or wd % 2):
+        raise ValueError(f"unpooling needs even H and W, got {(h, wd)}")
+    if dy is not None:
+        _require(dy, "dy", torch.bfloat16, (h // 2, wd // 2, k) if unpool else (h, wd, k))
     _require(w_t, "w_t", torch.bfloat16, (3, 3, k, n))
     if in_mask is not None:
         _require(in_mask, "in_mask", torch.int8, (h, wd, k))
+    if pre_add is not None:
+        _require(pre_add, "pre_add", torch.float32, (h, wd, k))
+    if pre_gate is not None:
+        _require(pre_gate, "pre_gate", torch.bfloat16, (h, wd, k))
     if add is not None:
         _require(add, "add", torch.float32, (h, wd, n))
     if gate is not None:
         _require(gate, "gate", torch.bfloat16, (h, wd, n))
-    out = torch.empty((h, wd, n), dtype=torch.bfloat16, device=dy.device)
+    out = torch.empty((h, wd, n), dtype=torch.bfloat16, device=w_t.device)
     lib = library()
     err = lib.st_conv3x3_bwd_data(
-        _ptr(dy), _ptr(in_mask), int(unpool), _ptr(w_t), _ptr(add), _ptr(gate),
-        _ptr(out), h, wd, k, n, _stream(),
+        _ptr(dy), _ptr(in_mask), int(unpool), _ptr(pre_add), _ptr(pre_gate), _ptr(w_t),
+        _ptr(add), _ptr(gate), _ptr(out), h, wd, k, n, _stream(),
     )
     _check_launch(lib, err, "conv3x3_bwd_data")
     count.n += 1
     return out
 
 
-def gram(f: torch.Tensor, *, count: LaunchCount) -> torch.Tensor:
-    """Unnormalized fp32 Gram ``F^T F`` of an (M, C) bf16 activation."""
+def _window(cols: Optional[Tuple[int, int, int]], m: int) -> Tuple[int, int, int]:
+    """``(W, clo, chi)`` of a Gram column window for the C entry points
+    ((0, 0, 0): none). Row r of the (M, C) operand is pixel column r % W."""
+    if cols is None:
+        return 0, 0, 0
+    w, clo, chi = (int(v) for v in cols)
+    if w <= 0 or m % w:
+        raise ValueError(f"a column window needs W > 0 dividing the {m} rows, got W={w}")
+    return w, clo, chi
+
+
+def gram(
+    f: torch.Tensor, *, count: LaunchCount, cols: Optional[Tuple[int, int, int]] = None
+) -> torch.Tensor:
+    """Unnormalized fp32 Gram ``F^T F`` of an (M, C) bf16 activation; with
+    ``cols = (W, clo, chi)`` only the rows whose pixel column ``r % W`` lies
+    in ``[clo, chi)`` count."""
     m, c = f.shape
     _require(f, "f", torch.bfloat16, (m, c))
     if c % 64:
         raise ValueError(f"Gram channels must be a multiple of 64, got {c}")
+    win = _window(cols, m)
     lib = library()
     rows = lib.st_gram_rows_per_chunk()
     part = torch.empty((-(-m // rows), c, c), dtype=torch.float32, device=f.device)
     out = torch.empty((c, c), dtype=torch.float32, device=f.device)
-    err = lib.st_gram(_ptr(f), _ptr(part), _ptr(out), m, c, _stream())
+    err = lib.st_gram(_ptr(f), _ptr(part), _ptr(out), m, c, *win, _stream())
     _check_launch(lib, err, "gram")
     count.n += 1
     return out
 
 
 def gram_fs(
-    f: torch.Tensor, s: torch.Tensor, *, count: LaunchCount, relu_gate: bool = False
+    f: torch.Tensor, s: torch.Tensor, *, count: LaunchCount, relu_gate: bool = False,
+    cols: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
     """``F S`` for F (M, C) bf16 and S (C, C) bf16: fp32 (M, C), or with
-    ``relu_gate`` the bf16 ``where(F > 0, F S, 0)``."""
+    ``relu_gate`` the bf16 ``where(F > 0, F S, 0)``. With ``cols`` (as in
+    :func:`gram`) the rows outside the column window are zero."""
     m, c = f.shape
     _require(f, "f", torch.bfloat16, (m, c))
     _require(s, "s", torch.bfloat16, (c, c))
     if c % 64:
         raise ValueError(f"Gram channels must be a multiple of 64, got {c}")
+    win = _window(cols, m)
     out32 = None if relu_gate else torch.empty((m, c), dtype=torch.float32, device=f.device)
     out16 = torch.empty((m, c), dtype=torch.bfloat16, device=f.device) if relu_gate else None
     lib = library()
-    err = lib.st_gram_fs(_ptr(f), _ptr(s), _ptr(out32), _ptr(out16), m, c, _stream())
+    err = lib.st_gram_fs(_ptr(f), _ptr(s), _ptr(out32), _ptr(out16), m, c, *win, _stream())
     _check_launch(lib, err, "gram_fs")
     count.n += 1
     return out16 if relu_gate else out32

@@ -24,6 +24,7 @@ from style_transfer_tpu_torch.ops.kernels import block1 as B1
 from style_transfer_tpu_torch.ops.kernels import block2 as B2
 from style_transfer_tpu_torch.ops.kernels import conv_gram as CG
 from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
+from style_transfer_tpu_torch.ops.kernels import conv_single as CS
 from style_transfer_tpu_torch.ops.kernels import epilogue as EP
 from style_transfer_tpu_torch.ops.kernels import tolerances as T
 
@@ -38,10 +39,36 @@ def _pair_plain(pool, gram):
     return lambda *a: CP.conv_pair_plain(*a, pool=pool, gram=gram)
 
 
+def _single_plain(pool, gram, gram_cols=None):
+    return lambda *a: CS.conv_single_plain(*a, pool=pool, gram=gram, gram_cols=gram_cols)
+
+
+# single-conv cases at H=10, W=18 (ragged against the 8x16 tile): name ->
+# (kernel wrapper, plain version, cin, cout, pool, gram)
+SINGLES = {
+    "single_plain": (CS.single_plain, _single_plain(False, False), 64, 64, False, False),
+    "single_gram": (CS.single_gram, _single_plain(False, True), 64, 128, False, True),
+    "single_pool": (CS.single_pool, _single_plain(True, False), 64, 64, True, False),
+    "single_pool_gram": (CS.make_conv_single(pool=True, gram=True), _single_plain(True, True),
+                         64, 128, True, True),
+    "gram_window": (CS.make_conv_single(pool=False, gram=True, gram_cols=(3, 11)),
+                    _single_plain(False, True, (3, 11)), 64, 64, False, True),
+    "wide_single_slices2": (CS.make_wide_single(pool=True, gram=True, slices=2),
+                            _single_plain(True, True), 64, 64, True, True),
+    "gram_tail": (CS.gram_tail, lambda *a: CS.conv_single_plain(*a, pool=False, gram=True)[1],
+                  128, 128, None, True),
+}
+
+
 def _case(name):
     """(kernel wrapper, plain version, x, weights, cotangent shapes); the
     cotangent of a 2-D shape is a Gram's."""
     rng = np.random.RandomState(0)
+    if name in SINGLES:
+        kernel, plain, cin, cout, pool, gram = SINGLES[name]
+        x = rng.rand(1, 10, 18, cin).astype(np.float32)
+        cts = [] if pool is None else [(1, 5, 9, cout) if pool else (1, 10, 18, cout)]
+        return kernel, plain, x, _conv_weights(rng, cin, cout), cts + [(cout, cout)] * gram
     if name == "pair_gram":
         x = rng.rand(1, 32, 32, 64).astype(np.float32)
         w = _conv_weights(rng, 64, 64) + _conv_weights(rng, 64, 64)
@@ -77,7 +104,8 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "name", ["pair_gram", "pair_pool", "block2_fused", "conv_gram", "block1_packed", "tv_loss"]
+    "name",
+    ["pair_gram", "pair_pool", "block2_fused", "conv_gram", "block1_packed", "tv_loss", *SINGLES],
 )
 def test_cuda_kernel_matches_plain_version(name, cuda_device):
     torch.backends.cudnn.allow_tf32 = False
@@ -117,6 +145,22 @@ def test_cuda_tensors_launch_the_kernels(cuda_device):
                        *[torch.from_numpy(a).to(cuda_device) for a in w])
     assert CP.launches.n == before + 3  # conv a, conv b (+ pool + mask), Gram
     assert out.dtype == torch.bfloat16 and gram.dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_cuda_single_counts_its_launches(cuda_device):
+    """The single and gram_tail launch on the card, each under its own
+    counter: conv and Gram forward, Gram term and transposed conv backward."""
+    x = torch.rand(1, 10, 18, 64, device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+    k, b = (torch.from_numpy(a).to(cuda_device) for a in _conv_weights(np.random.RandomState(0), 64, 64))
+    before, tail_before = CS.launches.n, CS.gram_tail_launches.n
+    out, gram = CS.single_gram(x, k, b)
+    assert CS.launches.n == before + 2
+    torch.autograd.grad((out.float().sum() + gram.sum()), x)
+    assert CS.launches.n == before + 4
+    (dx,) = torch.autograd.grad(CS.gram_tail(x, k, b).sum(), x)
+    assert CS.gram_tail_launches.n == tail_before + 4 and CS.launches.n == before + 4
+    assert dx.dtype == torch.bfloat16 and torch.isfinite(dx.float()).all()
 
 
 @pytest.mark.cuda

@@ -15,6 +15,7 @@ from style_transfer_tpu_torch.ops.kernels import block1 as B1
 from style_transfer_tpu_torch.ops.kernels import block2 as B2
 from style_transfer_tpu_torch.ops.kernels import conv_gram as CG
 from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
+from style_transfer_tpu_torch.ops.kernels import conv_single as CS
 from style_transfer_tpu_torch.ops.kernels import epilogue as EP
 
 REPO = Path(__file__).resolve().parents[1]
@@ -32,6 +33,8 @@ MODULES = [
     "style_transfer_tpu_torch.ops.kernels.block2",
     "style_transfer_tpu_torch.ops.kernels.conv_gram",
     "style_transfer_tpu_torch.ops.kernels.conv_pair",
+    "style_transfer_tpu_torch.ops.kernels.conv_single",
+    "style_transfer_tpu_torch.ops.kernels.dispatch",
     "style_transfer_tpu_torch.ops.kernels.epilogue",
     "style_transfer_tpu_torch.utils.imgio",
     "style_transfer_tpu_torch.utils.progress",
@@ -105,6 +108,11 @@ WRAPPERS = [
     (CP.pair_pool, 8, 4, CP.launches),
     (CG.conv_gram, 8, 2, CG.launches),
     (EP.tv_loss, 3, 0, EP.launches),
+    (CS.single_gram, 64, 2, CS.launches),
+    (CS.single_pool, 8, 2, CS.launches),
+    (CS.gram_tail, 64, 2, CS.gram_tail_launches),
+    (CS.make_pair_of_singles(pool=True, gram=True), 64, 4, CS.launches),
+    (CS.make_wide_single(pool=True, gram=True, slices=2), 8, 2, CS.launches),
 ]
 
 
