@@ -10,19 +10,29 @@ Phases, one JSON object per line on stdout:
    csrc`` with nvcc (sm_90a) and reports the seconds and the compiler's
    register and spill report;
 3. kernel — each kernel wrapper at the shapes the 512 px main path gives it,
-   and the single-conv wrappers at the shapes of the large-image path (the
+   the single-conv wrappers at the shapes of the large-image path (the
    block-2 segment of the 256x4096 scale, the block-4 front of the 512x8192
    scale, conv5_1's ``gram_tail`` there, and a forced two-slice W-sliced
-   single against the unsliced one), in bf16, against the plain PyTorch
+   single against the unsliced one), and the opt-in path's kernels at its
+   1024 px shapes (``content_loss`` at conv4_2, ``style_loss`` at C = 64 and
+   512, ``pallas_gram`` at the four materialized style layers with both
+   forms of its backward, ``block1_full`` and ``block1_tail`` at 1024x1024
+   with ``block1_packed`` timed beside), in bf16, against the plain PyTorch
    version run in fp32 on the same bf16-valued inputs: forward outputs and
    the input gradient for a random cotangent, relative Frobenius and max-abs
    errors; each error must be within its stated limit and at most 1.5x the
    plain version's own bf16 error plus 1e-3
    (``style_transfer_tpu_torch/ops/kernels/tolerances.py``); for each, the
-   fwd+bwd device time per call (profiler, kernels only) and the median of
+   fwd+bwd device time per call (profiler, kernels only), the plain
+   version's, the library yardstick's where one PyTorch call computes the
+   same function (``F.conv2d`` with its backward-data, ``f.T @ f`` with the
+   bf16 ``f @ S`` of its backward, ``F.mse_loss`` with its gradient), the
+   bound (the least time the card could take: bytes over 3.35 TB/s or
+   operations over the peak rate, whichever is larger), and the median of
    20 CUDA-event-timed calls (which also counts host launch gaps). Block 1
-   and TV also run once at the 512x8192 panorama's full size, the largest
-   tensors of the port (the index-width check of ``csrc/common.cuh``);
+   (all three forms) and TV also run once at the 512x8192 panorama's full
+   size, the largest tensors of the port (the index-width check of
+   ``csrc/common.cuh``);
 4. segment forms — the fused pair against the pair of singles at the five
    two-conv segments of the 2048x2048 scale (effective width 2048, where
    the dispatch switches to singles): both times, and their agreement;
@@ -38,11 +48,23 @@ Phases, one JSON object per line on stdout:
 7. large — the same checks for a 512x8192 panorama over the 128x2048 ->
    256x4096 -> 512x8192 ladder, where every two-conv segment runs as
    singles and the last scale's conv5_1 as ``gram_tail``: the singles and
-   ``gram_tail`` must launch and the conv pair must not.
+   ``gram_tail`` must launch and the conv pair must not;
+8. fused_block1 — the same checks for ``StylizeConfig(fused_block1=True)``
+   on 1024x1024 inputs with the 512->1024 ladder: ``block1_full`` and TV
+   must launch, and none of the chain's kernels;
+9. objective — ``ops.losses.objective_terms`` with all four hooks (the Gram
+   kernel and the fused content, style and TV losses) under
+   ``optim.make_step_fn`` / ``make_chunk_fn``, 20 Adam steps at 1024x1024,
+   with block 1 as ``block1_full`` and as conv1_1 + ``block1_tail``: each
+   loss curve against the hook-free plain fp32 objective, every kernel of
+   the arm launched, and the step time with each hook on and off (at
+   256x256 and 512x512 too for ``gram_matrix``'s dispatch).
 
-Each stylize phase sets every launch count to 0 just before it runs and
-reads them all just after. Then a ``{"kernels": [...]}`` summary line (each
-kernel's launches from the phase whose path runs it), the nvidia-smi line,
+Each stylize phase and each arm of the objective phase sets every launch
+count to 0 just before it runs and reads them all just after. Then a
+``{"kernels": [...]}`` summary line (eleven kernels, each with the launches
+of the phase whose path runs it, its error, its time, the plain version's,
+the library call's and its bound), the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed phase raises: the
 script exits nonzero and prints no ok line. Without a CUDA device it exits
 with code 2 before doing anything else.
@@ -99,6 +121,15 @@ KERNEL_META = {
                     ["csrc/conv3x3.cu", "csrc/gram.cu"], "large"),
     "gram_tail": ("style_transfer_tpu/ops/pallas/conv_single.py:250/:321",
                   ["csrc/conv3x3.cu", "csrc/gram.cu"], "large"),
+    "block1_full": ("style_transfer_tpu/ops/pallas/block1.py:555", ["csrc/block1.cu"],
+                    "fused_block1"),
+    "block1_tail": ("style_transfer_tpu/ops/pallas/block1.py:292", ["csrc/block1.cu"],
+                    "objective_tail"),
+    "pallas_gram": ("style_transfer_tpu/ops/pallas/gram.py:113", ["csrc/gram.cu"], "objective"),
+    "content_loss": ("style_transfer_tpu/ops/pallas/epilogue.py:116", ["csrc/epilogue.cu"],
+                     "objective"),
+    "style_loss": ("style_transfer_tpu/ops/pallas/epilogue.py:174", ["csrc/epilogue.cu"],
+                   "objective"),
 }
 
 # kernel -> its module's launch counter attribute
@@ -106,6 +137,9 @@ COUNTERS = {
     "block1_packed": ("block1", "launches"), "conv_pair": ("conv_pair", "launches"),
     "conv_gram": ("conv_gram", "launches"), "tv_loss": ("epilogue", "launches"),
     "conv_single": ("conv_single", "launches"), "gram_tail": ("conv_single", "gram_tail_launches"),
+    "block1_full": ("block1", "full_launches"), "block1_tail": ("block1", "tail_launches"),
+    "pallas_gram": ("gram", "launches"), "content_loss": ("epilogue", "content_launches"),
+    "style_loss": ("epilogue", "style_launches"),
 }
 
 
@@ -149,32 +183,74 @@ def _device_ms(torch, fn, reps: int = 5) -> float:
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):  # a trace now and then comes back without device events
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not us > 0:
-        raise RuntimeError("the profiler recorded no device time on the card")
-    return us / reps / 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    raise RuntimeError("the profiler recorded no device time on the card in three traces")
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates, 700 W):
+# the yardsticks of each kernel's bound.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+
+
+def _bound(nbytes: float, flops: float, kind: str):
+    """The least time the card could take, in ms, and what binds: the bytes
+    the function must move (each input read once, each output written once)
+    over the memory rate, or its operations over the peak rate for their
+    type (bf16 on the tensor cores, fp32 outside them)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _conv_flops(h, w, *chain) -> float:
+    """Forward plus backward-data of a chain of 3x3 convs ((cin, cout), ...)."""
+    return sum(2 * 2.0 * h * w * 9 * cin * cout for cin, cout in chain)
+
+
+def _gram_flops(m, c) -> float:
+    """F^T F forward plus F S backward."""
+    return 2 * 2.0 * m * c * c
 
 
 def kernel_checks(torch, params):
     """Phase 3: every kernel wrapper at the shapes its path gives it, in bf16
-    (TV in fp32), against its plain version run in fp32 on the same
-    bf16-valued inputs, weights and cotangents. The plain version in bf16 is
-    held against the same reference, for scale, and timed against the
-    kernel. Returns per-kernel summaries (errors of every case; times of the
-    cases on a stylize path)."""
+    (TV, the fp32 content loss and the style loss in fp32), against its plain
+    version run in fp32 on the same bf16-valued inputs, weights and
+    cotangents. The plain version in the kernel's dtype is held against the
+    same reference, for scale, and timed against the kernel; where one
+    PyTorch call computes the same function (``F.conv2d`` and its
+    backward-data for the conv kernels, ``f.T @ f`` and ``f @ S`` in bf16 for
+    the Grams, ``F.mse_loss`` and its gradient for the content and style
+    losses) it is timed too, forward and backward like the kernel, as a
+    yardstick that the port never calls. Each case's bound (the
+    least time the card could take) is computed from its tensors and its
+    operation count. Returns per-kernel summaries (errors of every case;
+    times and bounds of the cases on a path that the script drives)."""
+    import torch.nn.functional as F
+
+    from style_transfer_tpu_torch.ops.kernels import _build, _launch
     from style_transfer_tpu_torch.ops.kernels import block1 as B1
     from style_transfer_tpu_torch.ops.kernels import conv_gram as CG
     from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
     from style_transfer_tpu_torch.ops.kernels import conv_single as CS
     from style_transfer_tpu_torch.ops.kernels import epilogue as EP
+    from style_transfer_tpu_torch.ops.kernels import gram as KG
     from style_transfer_tpu_torch.ops.kernels.tolerances import (
-        TOL_ACT, TOL_DX, TOL_GRAM, TOL_TV, within,
+        TOL_ACT, TOL_DX, TOL_GRAM, TOL_LOSS, TOL_TV, within,
     )
 
     dev = torch.device("cuda")
@@ -203,14 +279,66 @@ def kernel_checks(torch, params):
         fn = CP.conv_pair_plain if plain else CP.conv_pair
         return lambda x, *w: fn(x, *w, pool=pool, gram=gram)
 
-    # (kernel, label, x, kernel fn, plain fn, weights, cotangents, output
-    # tols, dtype, on a stylize path: its times go into the summary)
+    def conv_library(h, w, *chain):
+        """Forward and backward-data of the bare conv chain through
+        ``F.conv2d`` (cuDNN, bf16, channels-last): the library yardstick."""
+        xl = torch.randn(1, chain[0][0], h, w, device=dev, dtype=bf16).contiguous(
+            memory_format=torch.channels_last)
+        wts = [torch.randn(cout, cin, 3, 3, device=dev, dtype=bf16).contiguous(
+            memory_format=torch.channels_last) for cin, cout in chain]
+        gy = torch.randn(1, chain[-1][1], h, w, device=dev, dtype=bf16).contiguous(
+            memory_format=torch.channels_last)
+
+        def call():
+            xr = xl.detach().requires_grad_(True)
+            y = xr
+            for wt in wts:
+                y = F.conv2d(y, wt, padding=1)
+            torch.autograd.grad(y, xr, grad_outputs=gy)
+
+        return call
+
+    def gram_library(f):
+        """The Gram and its VJP product as two bf16 ``torch.matmul`` calls:
+        ``f.T @ f`` forward, ``f @ S`` backward."""
+        f2d = f.to(bf16).reshape(-1, f.shape[-1])
+        sym = randn(f.shape[-1], f.shape[-1]).to(bf16)
+        return lambda: (f2d.T @ f2d, f2d @ sym)
+
+    def mse_library(f, target, dtype):
+        """``F.mse_loss`` and its gradient to the first argument: the mean
+        squared difference that both fused losses compute."""
+        f, target = f.to(dtype), target.to(dtype)
+
+        def call():
+            fr = f.detach().requires_grad_(True)
+            torch.autograd.grad(F.mse_loss(fr, target), fr)
+
+        return call
+
+    cases = []
+
+    def add(kernel, label, x, k_fn, p_fn, ws, cts, tols, *, flops, dtype=bf16, on_path=True,
+            kind="bf16", library=None, dx_tol=TOL_DX, cast_ws=False, extra=None, calls=None):
+        """One case: ``k_fn``/``p_fn`` (kernel wrapper, plain version) on x and
+        ws, cotangents cts, per-output limits tols and the input gradient's
+        dx_tol; ``on_path``: its times and bound go into the summary;
+        ``flops``/``kind`` for the bound; ``library``: the yardstick call;
+        ``cast_ws``: ws follow the run's dtype (a loss target); ``extra``:
+        other wrappers timed on the same inputs; ``calls``: named calls timed
+        as they are."""
+        cases.append(dict(kernel=kernel, label=label, x=x, k_fn=k_fn, p_fn=p_fn, ws=ws, cts=cts,
+                          tols=tols, flops=flops, dtype=dtype, on_path=on_path, kind=kind,
+                          library=library, dx_tol=dx_tol, cast_ws=cast_ws, extra=extra or {},
+                          calls=calls or {}))
+
+    b1_chain = ((3, 64), (64, 64))
     hw = 512 * 512
-    cases = [(
-        "block1_packed", "1x512x512x3 -> pool1 + gram64", randn(1, 512, 512, 3),
+    add("block1_packed", "1x512x512x3 -> pool1 + gram64", randn(1, 512, 512, 3),
         B1.block1_packed, B1.block1_plain, weights("conv1_1", "conv1_2"),
-        (randn(1, 256, 256, 64), randn(64, 64) * (hw / 64)), (TOL_ACT, TOL_GRAM), bf16, True,
-    )]
+        (randn(1, 256, 256, 64), randn(64, 64) * (hw / 64)), (TOL_ACT, TOL_GRAM),
+        flops=_conv_flops(512, 512, *b1_chain) + _gram_flops(hw, 64),
+        library=conv_library(512, 512, *b1_chain))
     pairs = [
         ("256x256 64->128 pool+gram", 256, 64, 128, True, True, ("conv2_1", "conv2_2")),
         ("128x128 128->256 gram", 128, 128, 256, False, True, ("conv3_1", "conv3_2")),
@@ -223,19 +351,19 @@ def kernel_checks(torch, params):
         cts, tols = (randn(1, so, so, cmid),), (TOL_ACT,)
         if gram:
             cts, tols = cts + (randn(cmid, cmid) * (s * s / cmid),), tols + (TOL_GRAM,)
-        cases.append((
-            "conv_pair", label, rand(1, s, s, cin), pair(pool, gram, False),
-            pair(pool, gram, True), weights(*names), cts, tols, bf16, True,
-        ))
-    cases.append((
-        "conv_gram", "32x32 512->512 gram", rand(1, 32, 32, 512),
+        chain = ((cin, cmid), (cmid, cmid))
+        add("conv_pair", label, rand(1, s, s, cin), pair(pool, gram, False),
+            pair(pool, gram, True), weights(*names), cts, tols,
+            flops=_conv_flops(s, s, *chain) + (_gram_flops(s * s, cmid) if gram else 0),
+            library=conv_library(s, s, *chain))
+    add("conv_gram", "32x32 512->512 gram", rand(1, 32, 32, 512),
         CG.conv_gram, CG.conv_gram_plain, weights("conv5_1"),
-        (randn(512, 512) * (32 * 32 / 512),), (TOL_GRAM,), bf16, True,
-    ))
-    cases.append((
-        "tv_loss", "1x512x512x3 fp32", rand(1, 512, 512, 3), EP.tv_loss, EP.tv_loss_plain,
-        [], (torch.ones((), device=dev),), (TOL_TV,), torch.float32, True,
-    ))
+        (randn(512, 512) * (32 * 32 / 512),), (TOL_GRAM,),
+        flops=_conv_flops(32, 32, (512, 512)) + _gram_flops(32 * 32, 512),
+        library=conv_library(32, 32, (512, 512)))
+    add("tv_loss", "1x512x512x3 fp32", rand(1, 512, 512, 3), EP.tv_loss, EP.tv_loss_plain,
+        [], (torch.ones((), device=dev),), (TOL_TV,), flops=10.0 * 512 * 512 * 3,
+        dtype=torch.float32, kind="fp32", dx_tol=TOL_TV)
 
     def single_plain(pool, gram):
         return lambda x, k, b: CS.conv_single_plain(x, k, b, pool=pool, gram=gram)
@@ -250,43 +378,98 @@ def kernel_checks(torch, params):
             cts, tols = (randn(1, h // 2, w // 2, cout) if pool else randn(1, h, w, cout),), (TOL_ACT,)
             if gram:
                 cts, tols = cts + (randn(cout, cout) * (h * w / cout),), tols + (TOL_GRAM,)
-            cases.append((
-                "conv_single", f"{h}x{w} {cin}->{cout} {what}", rand(1, h, w, cin), fn,
-                single_plain(pool, gram), weights(name), cts, tols, bf16, True,
-            ))
-    cases.append((
-        "gram_tail", "32x512 512->512 gram (conv5_1 of 512x8192)", rand(1, 32, 512, 512),
+            add("conv_single", f"{h}x{w} {cin}->{cout} {what}", rand(1, h, w, cin), fn,
+                single_plain(pool, gram), weights(name), cts, tols,
+                flops=_conv_flops(h, w, (cin, cout)) + (_gram_flops(h * w, cout) if gram else 0),
+                library=conv_library(h, w, (cin, cout)))
+    add("gram_tail", "32x512 512->512 gram (conv5_1 of 512x8192)", rand(1, 32, 512, 512),
         CS.gram_tail, lambda x, k, b: CS.conv_single_plain(x, k, b, pool=False, gram=True)[1],
-        weights("conv5_1"), (randn(512, 512) * (32 * 512 / 512),), (TOL_GRAM,), bf16, True,
-    ))
+        weights("conv5_1"), (randn(512, 512) * (32 * 512 / 512),), (TOL_GRAM,),
+        flops=_conv_flops(32, 512, (512, 512)) + _gram_flops(32 * 512, 512),
+        library=conv_library(32, 512, (512, 512)))
     # the column window on the card: two W slices with halos, each Gram over
     # its owned columns, against the plain version (and, below, the unsliced
     # single)
     wide = CS.make_wide_single(pool=False, gram=True, slices=2)
     wide_x, wide_w = rand(1, 128, 2048, 64), weights("conv2_1")
     wide_cts = (randn(1, 128, 2048, 128), randn(128, 128) * (128 * 2048 / 128))
-    cases.append((
-        "conv_single", "128x2048 64->128 gram, W-sliced slices=2", wide_x, wide,
-        single_plain(False, True), wide_w, wide_cts, (TOL_ACT, TOL_GRAM), bf16, False,
-    ))
+    add("conv_single", "128x2048 64->128 gram, W-sliced slices=2", wide_x, wide,
+        single_plain(False, True), wide_w, wide_cts, (TOL_ACT, TOL_GRAM), on_path=False,
+        flops=_conv_flops(128, 2048, (64, 128)) + _gram_flops(128 * 2048, 128))
     # index width: block 1 and TV at the panorama's full size (block 1's
     # activations are 512*8192*64 = 268 M elements, its Gram 4.19 M rows)
-    cases.append((
-        "block1_packed", "1x512x8192x3 -> pool1 + gram64 (index width)", randn(1, 512, 8192, 3),
+    add("block1_packed", "1x512x8192x3 -> pool1 + gram64 (index width)", randn(1, 512, 8192, 3),
         B1.block1_packed, B1.block1_plain, weights("conv1_1", "conv1_2"),
-        (randn(1, 256, 4096, 64), randn(64, 64) * (512 * 8192 / 64)), (TOL_ACT, TOL_GRAM), bf16,
-        False,
-    ))
-    cases.append((
-        "tv_loss", "1x512x8192x3 fp32 (index width)", rand(1, 512, 8192, 3), EP.tv_loss,
-        EP.tv_loss_plain, [], (torch.ones((), device=dev),), (TOL_TV,), torch.float32, False,
-    ))
+        (randn(1, 256, 4096, 64), randn(64, 64) * (512 * 8192 / 64)), (TOL_ACT, TOL_GRAM),
+        on_path=False, flops=_conv_flops(512, 8192, *b1_chain) + _gram_flops(512 * 8192, 64))
+    add("tv_loss", "1x512x8192x3 fp32 (index width)", rand(1, 512, 8192, 3), EP.tv_loss,
+        EP.tv_loss_plain, [], (torch.ones((), device=dev),), (TOL_TV,), on_path=False,
+        flops=10.0 * 512 * 8192 * 3, dtype=torch.float32, kind="fp32", dx_tol=TOL_TV)
+
+    # ---- the opt-in path's kernels, at the 1024 px shapes of its phases
+    one = (torch.ones((), device=dev),)
+    n42 = 128 * 128 * 512  # conv4_2 at 1024 px
+    f42, t42 = rand(1, 128, 128, 512), rand(1, 128, 128, 512)
+    add("content_loss", "conv4_2 at 1024 px: 16384x512 bf16", f42,
+        EP.content_loss, EP.content_loss_plain, [t42], one, (TOL_LOSS,),
+        flops=3.0 * n42, dx_tol=TOL_ACT, cast_ws=True, library=mse_library(f42, t42, bf16))
+    f42, t42 = rand(1, 128, 128, 512), rand(1, 128, 128, 512)
+    add("content_loss", "16384x512 fp32 input", f42,
+        EP.content_loss, EP.content_loss_plain, [t42], one, (TOL_LOSS,),
+        flops=3.0 * n42, dtype=torch.float32, kind="fp32", dx_tol=TOL_LOSS, on_path=False,
+        library=mse_library(f42, t42, torch.float32))
+    for c in (64, 512):
+        g, g_t = randn(c, c), randn(c, c)
+        add("style_loss", f"{c}x{c} fp32 Grams", g, EP.style_loss, EP.style_loss_plain,
+            [g_t], one, (TOL_LOSS,), flops=3.0 * c * c, dtype=torch.float32, kind="fp32",
+            dx_tol=TOL_LOSS, library=mse_library(g, g_t, torch.float32))
+
+    def gram_backward_products(x, c):
+        """The two ways to the Gram's VJP product F S: the fp32 matmul that
+        ``pallas_gram`` takes, and the ``gram_fs`` kernel with S in bf16."""
+        f = x.to(bf16).reshape(-1, c)
+        sym = randn(c, c)
+        s16 = sym.to(bf16)
+        scratch = _build.LaunchCount()
+        return {"bwd_matmul": lambda: (f.to(torch.float32) @ sym).to(bf16),
+                "bwd_gram_fs": lambda: _launch.gram_fs(f, s16, count=scratch).to(bf16)}
+
+    # the four style layers that materialize on the opt-in path at 1024 px,
+    # and conv1_1's shape there (which that path gets from block 1 instead)
+    # and, off the path, the shapes of the 512 px and 256 px scales of a
+    # ladder, which decide gram_matrix's least activation size
+    for s, c, px, on_path in [(512, 128, 1024, True), (256, 256, 1024, True),
+                              (128, 512, 1024, True), (64, 512, 1024, True),
+                              (1024, 64, 1024, False),
+                              (512, 64, 512, False), (256, 128, 512, False), (128, 256, 512, False),
+                              (256, 64, 256, False), (128, 128, 256, False), (64, 256, 256, False)]:
+        x = rand(1, s, s, c)
+        add("pallas_gram", f"{s * s}x{c} ({px} px)", x, KG.pallas_gram, KG.gram_plain, [],
+            (randn(c, c) * (s * s / c),), (TOL_GRAM,), flops=_gram_flops(s * s, c),
+            library=gram_library(x), dx_tol=TOL_ACT, on_path=on_path,
+            calls=gram_backward_products(x, c))
+
+    for h, w, on_path in [(1024, 1024, True), (512, 8192, False)]:
+        note = "" if on_path else " (index width)"
+        cts = (randn(1, h // 2, w // 2, 64), randn(64, 64) * (h * w / 64))
+        full_w = weights("conv1_1", "conv1_2")
+        add("block1_full", f"1x{h}x{w}x3 -> pool1 + gram64{note}", randn(1, h, w, 3),
+            B1.block1_full, B1.block1_plain, full_w, cts, (TOL_ACT, TOL_GRAM),
+            on_path=on_path, flops=_conv_flops(h, w, *b1_chain) + _gram_flops(h * w, 64),
+            library=conv_library(h, w, *b1_chain), extra={"block1_packed": B1.block1_packed})
+        add("block1_tail", f"r1 1x{h}x{w}x64 -> pool1 + gram64{note}", rand(1, h, w, 64),
+            B1.block1_tail, B1.block1_tail_plain, weights("conv1_2"), cts, (TOL_ACT, TOL_GRAM),
+            on_path=on_path, flops=_conv_flops(h, w, (64, 64)) + _gram_flops(h * w, 64),
+            library=conv_library(h, w, (64, 64)))
 
     summary = {}
-    for name, label, x, k_fn, p_fn, ws, cts, tols, dtype, on_path in cases:
+    for case in cases:
+        name, label, x, ws, cts = (case[k] for k in ("kernel", "label", "x", "ws", "cts"))
+        k_fn, p_fn, dtype, tols = (case[k] for k in ("k_fn", "p_fn", "dtype", "tols"))
+
         def run(fn, dt):
             xr = x.to(dt).requires_grad_(True)
-            outs = fn(xr, *ws)
+            outs = fn(xr, *([a.to(dt) for a in ws] if case["cast_ws"] else ws))
             outs = outs if isinstance(outs, tuple) else (outs,)
             grads = [c.to(o.dtype) for c, o in zip(cts, outs)]
             (gx,) = torch.autograd.grad(outs, xr, grad_outputs=grads)
@@ -296,12 +479,16 @@ def kernel_checks(torch, params):
         r_res = run(p_fn, torch.float32)
         torch.cuda.synchronize()
         whats = [f"out{i}" for i in range(len(tols))] + ["dx"]
-        dx_tol = TOL_TV if name == "tv_loss" else TOL_DX
         errors = [
             {"what": w, "rel": _rel(k, r), "max_abs": _max_abs(k, r),
              "plain_bf16_rel": _rel(p, r), "tol": tol}
-            for w, k, p, r, tol in zip(whats, k_res, p_res, r_res, list(tols) + [dx_tol])
+            for w, k, p, r, tol in zip(whats, k_res, p_res, r_res, list(tols) + [case["dx_tol"]])
         ]
+        # the function as a whole: (x, weights, cotangents) -> (outputs, dx)
+        nbytes = (_nbytes(*k_res, x.to(dtype), *([a.to(dtype) for a in ws] if case["cast_ws"] else ws))
+                  + sum(_nbytes(c.to(o.dtype)) for c, o in zip(cts, k_res)))
+        bound_ms, bound_by = _bound(nbytes, case["flops"], case["kind"])
+        del p_res, r_res
         t_k, t_p = [], []
         for _ in range(2):  # kernel, plain, kernel, plain: in turns on one card
             t_k += _wall_ms(torch, lambda: run(k_fn, dtype), reps=10)
@@ -309,17 +496,32 @@ def kernel_checks(torch, params):
         wall, plain_wall = statistics.median(t_k), statistics.median(t_p)
         ms = _device_ms(torch, lambda: run(k_fn, dtype))
         plain_ms = _device_ms(torch, lambda: run(p_fn, dtype))
+        library_ms = _device_ms(torch, case["library"]) if case["library"] else None
+        extra_ms = {what + "_ms": _device_ms(torch, lambda: run(fn, dtype))
+                    for what, fn in case["extra"].items()}
+        extra_ms.update({what + "_ms": _device_ms(torch, fn) for what, fn in case["calls"].items()})
         emit({"phase": "kernel", "kernel": name, "case": label,
               "shape": list(x.shape), "errors": errors, "ms": ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "bytes": nbytes, "flops": case["flops"], **extra_ms,
               "wall_ms_median20": wall, "plain_wall_ms_median20": plain_wall})
         bad = [e for e in errors if not within(e["rel"], e["plain_bf16_rel"], e["tol"])]
         if bad:
             raise AssertionError(f"{name} [{label}] disagrees with its plain version: {bad}")
-        agg = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+        agg = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                        "bound_ms": 0.0, "library_ms": None, "by": {}})
         agg["max_abs_err"] = max(agg["max_abs_err"], *(e["max_abs"] for e in errors))
-        if on_path:
+        if case["on_path"]:
             agg["ms"] += ms
             agg["plain_ms"] += plain_ms
+            agg["bound_ms"] += bound_ms
+            agg["by"][bound_by] = agg["by"].get(bound_by, 0.0) + bound_ms
+            if library_ms is not None:
+                agg["library_ms"] = (agg["library_ms"] or 0.0) + library_ms
+        del k_res
+        torch.cuda.empty_cache()
+    for agg in summary.values():  # what binds most of the kernel's bound
+        agg["bound_by"] = max(agg.pop("by").items(), key=lambda kv: kv[1])[0]
 
     # the W-sliced single against the unsliced single, both on the kernels
     def fwd_bwd(fn):
@@ -467,7 +669,7 @@ def _stylize(torch, st, content, style, cfg):
 
 
 def stylize_check(torch, params, mean, std, *, phase, content, style, cfg, required, absent=()):
-    """Phases 6 and 7: one path through the public API, with every launch
+    """Phases 6 to 8: one path through the public API, with every launch
     count set to 0 just before it and read just after, against witness runs
     of the plain path in fp32 and in bf16. ``required`` kernels must have
     launched and ``absent`` ones must not. Returns the launch counts."""
@@ -536,6 +738,177 @@ def stylize_check(torch, params, mean, std, *, phase, content, style, cfg, requi
     return launches
 
 
+def objective_check(torch, params, mean, std):
+    """Phase 9: the library's own entry points — ``ops.losses.objective_terms``
+    with all four hooks (the Gram kernel, the fused content, style and TV
+    losses) under ``optim.make_step_fn`` / ``make_chunk_fn`` — for 20 Adam
+    steps on a 1024x1024 image, twice: block 1 as ``block1_full``, and as the
+    plain conv1_1 + ``block1_tail``. Each loss curve is held to the same
+    objective with no hook and plain block 1 in fp32; the launch counts are
+    set to 0 just before each arm and read just after, and every kernel of
+    the arm must have launched. Then the step time with each hook on and off
+    (block 1 as ``block1_full``; for the Gram at C = 64, which no kernel path
+    materializes, block 1 plain), and at 256x256 and 512x512 the step time
+    without the Gram kernel, with it by width alone and with ``gram_matrix``
+    as it dispatches, in turns on one card: the wall time of ten
+    steps and the device time of three (profiler), five rounds each. Returns
+    the two arms' launch counts."""
+    import numpy as np
+
+    from style_transfer_tpu_torch.models import vgg
+    from style_transfer_tpu_torch.ops import losses as L
+    from style_transfer_tpu_torch.ops.kernels import block1 as B1
+    from style_transfer_tpu_torch.ops.kernels import epilogue as EP
+    from style_transfer_tpu_torch.ops.kernels import gram as KG
+    from style_transfer_tpu_torch.optim import OptimizerSpec, make_chunk_fn, make_step_fn
+    from style_transfer_tpu_torch.utils import imgio
+
+    dev = torch.device("cuda")
+    p = {n: {k: torch.as_tensor(v, dtype=torch.float32).to(dev) for k, v in lp.items()}
+         for n, lp in params.items()}
+    content_layers, style_layers = vgg.DEFAULT_CONTENT_LAYERS, vgg.DEFAULT_STYLE_LAYERS
+    layers = tuple(dict.fromkeys(content_layers + style_layers))
+    deeper = tuple(l for l in layers if l != "conv1_1")
+    c_w = L.normalize_layer_weights(content_layers)
+    s_w = L.normalize_layer_weights(style_layers)
+    r = np.random.RandomState(3)
+    content = torch.from_numpy(r.rand(1, 1024, 1024, 3).astype(np.float32)).to(dev)
+    style = torch.from_numpy(r.rand(1, 1024, 1024, 3).astype(np.float32)).to(dev)
+    b1w = [p["conv1_1"]["kernel"], p["conv1_1"]["bias"], p["conv1_2"]["kernel"], p["conv1_2"]["bias"]]
+
+    def features(image, block1, dtype):
+        """(feats, gram overrides): block 1 as a kernel ("full", "tail") and
+        the deeper blocks plain, or everything plain."""
+        x = imgio.preprocess(image, mean, std).to(dtype)
+        if block1 == "plain":
+            return vgg.extract_features(p, x, layers), None
+        if block1 == "full":
+            pool1, g1 = B1.block1_full(x, *b1w)
+        else:
+            r1 = vgg.extract_features(p, x, ("conv1_1",))["conv1_1"]
+            pool1, g1 = B1.block1_tail(r1, *b1w[2:])
+        return vgg.extract_features(p, pool1, deeper, start_block=2), {"conv1_1": g1}
+
+    all_hooks = dict(gram_fn=KG.pallas_gram, content_loss_fn=EP.content_loss,
+                     style_loss_fn=EP.style_loss, tv_loss_fn=EP.tv_loss)
+
+    def make_objective(block1, dtype, hooks, images=(content, style)):
+        gram_fn = hooks.get("gram_fn", L.gram_matrix)
+        with torch.no_grad():
+            c_t = {l: features(images[0], block1, dtype)[0][l] for l in content_layers}
+            feats, over = features(images[1], block1, dtype)
+            s_t = {l: (over or {}).get(l, None) for l in style_layers}
+            s_t = {l: g if g is not None else gram_fn(feats[l]) for l, g in s_t.items()}
+
+        def objective(image):
+            feats, over = features(image, block1, dtype)
+            terms = L.objective_terms(
+                feats, gram_overrides=over, content_targets=c_t, style_targets=s_t,
+                content_layer_weights=c_w, style_layer_weights=s_w, image=image,
+                content_weight=1.0, style_weight=256.0, tv_weight=2.0, **hooks)
+            return terms["loss"], terms
+
+        return objective
+
+    def curve(objective, steps=20, chunk=10):
+        step, optimizer = make_step_fn(objective, OptimizerSpec())
+        run_chunk = make_chunk_fn(step, chunk)
+        image, state, out = content, optimizer.init(content), []
+        for _ in range(steps // chunk):
+            image, state, losses = run_chunk(image, state)
+            out += [float(v) for v in losses["loss"].cpu()]
+        return out
+
+    witness = curve(make_objective("plain", torch.float32, {}))
+    counters = _counters()
+    launches, curves, devs = {}, {}, {}
+    arms = {"objective": ("full", "block1_full"), "objective_tail": ("tail", "block1_tail")}
+    for phase, (block1, kernel) in arms.items():
+        objective = make_objective(block1, torch.bfloat16, all_hooks)  # capture is not counted
+        for c in counters.values():
+            c.n = 0
+        curves[phase] = curve(objective)
+        torch.cuda.synchronize()
+        launches[phase] = {k: c.n for k, c in counters.items()}
+        devs[phase] = max(abs(a - b) / abs(b) for a, b in zip(curves[phase], witness))
+        required = (kernel, "pallas_gram", "content_loss", "style_loss", "tv_loss")
+        missing = [k for k in required if launches[phase][k] == 0]
+        stray = [k for k, n in launches[phase].items() if n and k not in required]
+        if missing or stray:
+            raise AssertionError(f"{phase}: never launched {missing}, launched off the path {stray}")
+
+    # step time with each hook on and off, block 1 as block1_full; Gram widths
+    # one at a time through gram_matrix's channel set
+    def gram_only(*widths):
+        def fn(feat):
+            return KG.pallas_gram(feat) if feat.shape[-1] in widths else L.gram_matrix(feat)
+        return fn
+
+    variants = {
+        "no_hook": {},
+        "gram_128": {"gram_fn": gram_only(128)},
+        "gram_256": {"gram_fn": gram_only(256)},
+        "gram_512": {"gram_fn": gram_only(512)},
+        "gram_all": {"gram_fn": KG.pallas_gram},
+        "content": {"content_loss_fn": EP.content_loss},
+        "style": {"style_loss_fn": EP.style_loss},
+        "tv": {"tv_loss_fn": EP.tv_loss},
+        "all_four": all_hooks,
+    }
+    steps = {k: make_step_fn(make_objective("full", torch.bfloat16, h), OptimizerSpec()) + (content,)
+             for k, h in variants.items()}
+    # C = 64 materializes only where no block-1 kernel runs: the all-plain
+    # objective with and without the Gram kernel at that width
+    for k, h in {"plain_block1_no_hook": {}, "plain_block1_gram_64": {"gram_fn": gram_only(64)}}.items():
+        steps[k] = make_step_fn(make_objective("plain", torch.bfloat16, h), OptimizerSpec()) + (content,)
+    # the smallest scale a default ladder runs, 256 px, where the step waits
+    # on the host: the Gram kernel through gram_matrix's channel set on the
+    # two routes that reach it (block1_full + plain blocks 2-5, and the
+    # all-plain features that a configuration outside the chain's gates
+    # takes), and 512 px: without the kernel, with it at every width of the
+    # set whatever the size, and with gram_matrix as it dispatches
+    by_width = {"gram_fn": gram_only(*KG.KERNEL_CHANNELS)}
+    as_shipped = {"gram_fn": KG.gram_matrix}
+    for px, block1 in [(256, "full"), (256, "plain"), (512, "full")]:
+        small = (content[:, :px, :px].contiguous(), style[:, :px, :px].contiguous())
+        name = f"{px}_plain_block1" if block1 == "plain" else str(px)
+        for what, h in [("no_hook", {}), ("gram_by_width", by_width), ("gram_matrix", as_shipped)]:
+            steps[f"{name}_{what}"] = make_step_fn(
+                make_objective(block1, torch.bfloat16, h, small), OptimizerSpec()) + (small[0],)
+    times, device = {k: [] for k in steps}, {k: [] for k in steps}
+    for _ in range(5):  # every variant in turn, five rounds
+        for k, (step, optimizer, start) in steps.items():
+            carry = [start, optimizer.init(start)]
+
+            def one_step():
+                carry[0], carry[1], _ = step(carry[0], carry[1])
+
+            for _ in range(2):
+                one_step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                one_step()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) / 10 * 1e3)
+            device[k].append(_device_ms(torch, one_step, reps=3))
+    emit({"phase": "objective", "size": [1024, 1024], "gram_channel_set": sorted(KG.KERNEL_CHANNELS),
+          "gram_min_elements": KG.KERNEL_MIN_ELEMENTS,
+          "launches": launches,
+          "loss_per_step": curves, "plain_fp32_loss_per_step": witness,
+          "dev_from_fp32": devs, "tol_curve": TOL_CURVE,
+          "step_wall_ms_median5": {k: statistics.median(v) for k, v in times.items()},
+          "step_device_ms_median5": {k: statistics.median(v) for k, v in device.items()},
+          "step_wall_ms_rounds": times, "step_device_ms_rounds": device})
+    for phase, v in curves.items():
+        if not np.isfinite(v).all() or not max(v[-10:]) < max(v[:10]):
+            raise AssertionError(f"{phase}: loss not finite or not falling: {v}")
+        if not devs[phase] <= TOL_CURVE:
+            raise AssertionError(f"{phase}: loss curve departs from the plain fp32 objective's "
+                                 f"by {devs[phase]} > {TOL_CURVE}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -567,12 +940,20 @@ def main() -> int:
     from style_transfer_tpu_torch import StylizeConfig
 
     params, mean, std = random_fixture(0)
-    peak = {}
+    peak, seconds_by_phase = {}, {"build": seconds}
 
-    def measured(phase, fn):  # runs a phase and keeps its peak device memory
+    def measured(phase, fn):  # runs a phase and keeps its peak device memory and its seconds
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         out = fn()
+        seconds_by_phase[phase] = time.perf_counter() - t0
         peak[phase] = torch.cuda.max_memory_allocated() / 2**20
+        return out
+
+    def timed(phase, fn):  # the stylize phases reset the peak per scale themselves
+        t0 = time.perf_counter()
+        out = fn()
+        seconds_by_phase[phase] = time.perf_counter() - t0
         return out
 
     summary = measured("kernel", lambda: kernel_checks(torch, params))
@@ -581,22 +962,41 @@ def main() -> int:
     emit({"phase": "memory", "peak_mib": peak,
           "note": "the stylize phases print their peak per scale"})
     r = np.random.RandomState(0)
-    launches = {"stylize": stylize_check(
+    opt_in = ("block1_full", "block1_tail", "pallas_gram", "content_loss", "style_loss")
+    launches = {"stylize": timed("stylize", lambda: stylize_check(
         torch, params, mean, std, phase="stylize",
         content=r.rand(512, 512, 3).astype(np.float32),
         style=r.rand(512, 512, 3).astype(np.float32),
         cfg=StylizeConfig(size=512, min_scale=256, iterations=(20,), chunk_size=10),
-        required=("block1_packed", "conv_pair", "conv_gram", "tv_loss"),
-    )}
+        required=("block1_packed", "conv_pair", "conv_gram", "tv_loss"), absent=opt_in,
+    ))}
     r = np.random.RandomState(1)
-    launches["large"] = stylize_check(
+    launches["large"] = timed("large", lambda: stylize_check(
         torch, params, mean, std, phase="large",
         content=r.rand(512, 8192, 3).astype(np.float32),
         style=r.rand(512, 8192, 3).astype(np.float32),
         cfg=StylizeConfig(size=(512, 8192), min_scale=2048, iterations=(20,), chunk_size=10),
         required=("block1_packed", "conv_single", "gram_tail", "conv_gram", "tv_loss"),
-        absent=("conv_pair",),
-    )
+        absent=("conv_pair",) + opt_in,
+    ))
+
+    from style_transfer_tpu_torch.ops.kernels import gram as KG
+
+    r = np.random.RandomState(2)
+    launches["fused_block1"] = timed("fused_block1", lambda: stylize_check(
+        torch, params, mean, std, phase="fused_block1",
+        content=r.rand(1024, 1024, 3).astype(np.float32),
+        style=r.rand(1024, 1024, 3).astype(np.float32),
+        cfg=StylizeConfig(size=1024, min_scale=512, iterations=(20,), chunk_size=10,
+                          fused_block1=True),
+        required=("block1_full", "tv_loss") + (("pallas_gram",) if KG.KERNEL_CHANNELS else ()),
+        absent=("block1_packed", "conv_pair", "conv_single", "gram_tail", "conv_gram",
+                "block1_tail", "content_loss", "style_loss")
+        + (() if KG.KERNEL_CHANNELS else ("pallas_gram",)),
+    ))
+    launches.update(measured("objective", lambda: objective_check(torch, params, mean, std)))
+    emit({"phase": "memory", "peak_mib": {"objective": peak["objective"]},
+          "seconds_by_phase": seconds_by_phase})
 
     emit({"kernels": [
         {"name": name, "route": "cuda",
@@ -604,7 +1004,9 @@ def main() -> int:
          "sources": ["style_transfer_tpu_torch/" + s for s in sources],
          "replaces": replaces, "launches": launches[phase][name],
          "max_abs_err": summary[name]["max_abs_err"],
-         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
+         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"],
+         "bound_ms": summary[name]["bound_ms"], "bound_by": summary[name]["bound_by"],
+         "library_ms": summary[name]["library_ms"]}
         for name, (replaces, sources, phase) in KERNEL_META.items()
     ]})
     print(card, flush=True)

@@ -33,6 +33,17 @@ chain's Gram outputs), so on the GPU the kernels carry all of the main
 path's VGG work. The JAX package captures through plain XLA instead
 (``api.py:992-999``); on the CPU both sides run plain ops, so they agree.
 
+``StylizeConfig(fused_block1=True)`` is the reference's opt-in objective
+(``api.py:480-489``, ``:919-958``) and takes precedence over the chain: block
+1 runs as ``block1_full`` (``ops/kernels/block1.py``, one pass from the
+image), blocks 2-5 as the plain ``extract_features(start_block=2)``, and the
+materialized activations go to ``_gram_fn`` (``ops/kernels/gram.py``, which
+sends the channel widths of its ``KERNEL_CHANNELS``, from
+``KERNEL_MIN_ELEMENTS`` elements on, to the streaming Gram kernel). Odd extents take the plain path. Content and style targets of that
+path are captured through the same functions. The reference engages it only
+up to W = 1024 (a limit of its TPU compiler); the port has no width limit
+(``ops/kernels/dispatch.py``).
+
 On a CUDA device the compute dtype is bf16 and the chain runs the
 hand-written kernels (which take bf16 only: another compute dtype on the
 card raises for the chain); on the CPU it is fp32 and the chain runs each
@@ -42,7 +53,7 @@ kernel's plain PyTorch version. ``use_fused=False`` runs the plain
 Left out (ROADMAP.md): L-BFGS, pipelined chunks and background compiles,
 early stop, remat, resume/checkpoints, the ``debug_checks`` sanitizer,
 grid snapping and the 2^31 TPU resolution ceiling, meshes, and the
-experimental ``fused_block1`` / ``packed_block*`` switches.
+``packed_block*`` switches (the chain engages by its structural gates alone).
 """
 
 from __future__ import annotations
@@ -65,6 +76,7 @@ from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
 from style_transfer_tpu_torch.ops.kernels import conv_single as CS
 from style_transfer_tpu_torch.ops.kernels import dispatch
 from style_transfer_tpu_torch.ops.kernels import epilogue as EP
+from style_transfer_tpu_torch.ops.kernels import gram as KG
 from style_transfer_tpu_torch.optim import OptimizerSpec, make_step_fn
 from style_transfer_tpu_torch.schedule import _round_even, build_plan
 from style_transfer_tpu_torch.utils import imgio
@@ -102,6 +114,11 @@ class StylizeConfig:
     # The fused kernel chain (CUDA kernels on the GPU, their plain versions on
     # the CPU); False = the plain extract_features path everywhere.
     use_fused: bool = True
+    # Opt-in: block 1 as the one-pass block1_full kernel and blocks 2-5 plain,
+    # instead of the chain (needs use_fused, average pooling and no block-1
+    # activation requested beyond conv1_1's Gram; else it changes nothing but
+    # still switches the chain off, as in the reference).
+    fused_block1: bool = False
 
     def end_size(self, content_hw: Tuple[int, int]) -> Tuple[int, int]:
         if isinstance(self.size, int):
@@ -139,8 +156,10 @@ class StyleTransfer:
     ``params=None`` uses the port's numpy-drawn VGG-19 fixture
     (:func:`~style_transfer_tpu_torch.models.weights.random_fixture`); pass
     weights from :func:`~style_transfer_tpu_torch.models.weights.load_npz`
-    for real stylization. ``device`` defaults to CUDA when available;
-    ``compute_dtype`` to bf16 on CUDA and fp32 on the CPU (``api.py:362-364``).
+    for real stylization. ``device=None`` means the card: without a CUDA
+    device it raises, and the CPU is used only when asked with
+    ``device="cpu"``. ``compute_dtype`` defaults to bf16 on CUDA and fp32 on
+    the CPU (``api.py:362-364``).
     """
 
     def __init__(self, params=None, *, mean=None, std=None, pooling: str = "average",
@@ -150,7 +169,12 @@ class StyleTransfer:
             mean = fmean if mean is None else mean
             std = fstd if std is None else std
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "StyleTransfer runs on an NVIDIA GPU by default and CUDA is not "
+                    'available; pass device="cpu" to run on the CPU'
+                )
+            device = "cuda"
         self.device = torch.device(device)
         self.mean = np.asarray(imgio.IMAGENET_MEAN if mean is None else mean, np.float32)
         self.std = np.asarray(imgio.IMAGENET_STD if std is None else std, np.float32)
@@ -191,6 +215,34 @@ class StyleTransfer:
                 "for the plain path"
             )
         return cfg.use_fused
+
+    def _chain(self, cfg: StylizeConfig) -> bool:
+        """Whether the fused chain carries the VGG work: ``use_fused`` without
+        ``fused_block1``, which takes precedence (``api.py:494``)."""
+        return self._fused(cfg) and not cfg.fused_block1
+
+    def _gram_fn(self, cfg: StylizeConfig):
+        """Gram of a materialized activation (``api.py:408-413``)."""
+        return KG.gram_matrix if cfg.use_fused else L.gram_matrix
+
+    def _loss_fns(self, cfg: StylizeConfig) -> dict:
+        """Fused-epilogue hooks for :func:`ops.losses.objective_terms`
+        (``api.py:415-460``): the TV kernel. The content and style epilogues
+        (``ops/kernels/epilogue.py``) stay opt-in hooks of
+        ``objective_terms``, as in the reference: in the 1024 px objective
+        step on the H100 their gain was at the edge of the run-to-run spread,
+        and their effect on the chain's small, host-bound scales was not
+        measured (PERF.md)."""
+        return {"tv_loss_fn": EP.tv_loss} if cfg.use_fused else {}
+
+    def _block1_eligible(self, cfg: StylizeConfig) -> bool:
+        """Whether ``block1_full`` carries block 1 (``api.py:480-489``):
+        explicit opt-in, under ``use_fused`` and the structural gate."""
+        return (
+            cfg.fused_block1
+            and self._fused(cfg)
+            and self._block1_structurally_eligible(cfg.content_layers, cfg.style_layers)
+        )
 
     def _block1_structurally_eligible(self, content_layers, style_layers) -> bool:
         """Average pooling, no block-1 activation demanded beyond conv1_1's
@@ -293,19 +345,44 @@ class StyleTransfer:
             feats["conv4_2"] = y42
         return feats, grams
 
+    def _fused_block1_features(self, image, content_layers, style_layers):
+        """The ``fused_block1`` VGG forward of ``api.py:923-958``:
+        ``block1_full`` from the preprocessed image, then the plain deeper
+        blocks from pool1. Returns ``(feats, grams)`` like
+        :meth:`_chain_features`; odd extents take the plain path."""
+        all_layers = tuple(dict.fromkeys(list(content_layers) + list(style_layers)))
+        if not _even(image):
+            return self._features(image, all_layers), {}
+        x = imgio.preprocess(image, self.mean, self.std).to(self.compute_dtype)
+        pool1, g1 = B1.block1_full(x, *self._weights("conv1_1", "conv1_2"))
+        deeper = tuple(l for l in all_layers if l != "conv1_1")
+        feats: Dict[str, torch.Tensor] = {}
+        if deeper:
+            feats = vgg_mod.extract_features(
+                self.params, pool1, deeper, pooling=self.pooling, arch=self.arch, start_block=2,
+            )
+        return feats, ({"conv1_1": g1} if "conv1_1" in style_layers else {})
+
+    def _vgg(self, cfg: StylizeConfig, image, content_layers, style_layers):
+        """``(feats, grams)`` of ``image`` by the route ``cfg`` selects."""
+        if self._block1_eligible(cfg):
+            return self._fused_block1_features(image, content_layers, style_layers)
+        if self._chain(cfg):
+            return self._chain_features(image, content_layers, style_layers)
+        layers = tuple(dict.fromkeys(list(content_layers) + list(style_layers)))
+        return self._features(image, layers), {}
+
     def _build_objective(self, cfg: StylizeConfig):
         """``objective(image, c_targets, s_targets) -> (loss, terms)`` with
         the dispatch decisions of ``cfg`` baked in."""
         c_weights = L.normalize_layer_weights(cfg.content_layers, cfg.content_layer_weights)
         s_weights = L.normalize_layer_weights(cfg.style_layers, cfg.style_layer_weights)
-        all_layers = tuple(dict.fromkeys(list(cfg.content_layers) + list(cfg.style_layers)))
-        fused = self._fused(cfg)
+        self._fused(cfg)  # a chain or fused block 1 on the card needs bf16: raise here
+        gram_fn = self._gram_fn(cfg)
+        loss_fns = self._loss_fns(cfg)
 
         def objective(image, c_targets, s_targets):
-            if fused:
-                feats, grams = self._chain_features(image, cfg.content_layers, cfg.style_layers)
-            else:
-                feats, grams = self._features(image, all_layers), {}
+            feats, grams = self._vgg(cfg, image, cfg.content_layers, cfg.style_layers)
             terms = L.objective_terms(
                 feats,
                 gram_overrides=grams or None,
@@ -317,7 +394,8 @@ class StyleTransfer:
                 content_weight=cfg.content_weight,
                 style_weight=cfg.style_weight,
                 tv_weight=cfg.tv_weight,
-                tv_loss_fn=EP.tv_loss if fused else None,
+                gram_fn=gram_fn,
+                **loss_fns,
             )
             return terms["loss"], terms
 
@@ -325,19 +403,14 @@ class StyleTransfer:
 
     @torch.no_grad()
     def _capture_content(self, cfg: StylizeConfig, image) -> Dict[str, torch.Tensor]:
-        if self._fused(cfg):
-            feats, _ = self._chain_features(image, cfg.content_layers, ())
-        else:
-            feats = self._features(image, cfg.content_layers)
+        feats, _ = self._vgg(cfg, image, cfg.content_layers, ())
         return {l: feats[l] for l in cfg.content_layers}
 
     @torch.no_grad()
     def _capture_style(self, cfg: StylizeConfig, image) -> Dict[str, torch.Tensor]:
-        if self._fused(cfg):
-            feats, grams = self._chain_features(image, (), cfg.style_layers)
-        else:
-            feats, grams = self._features(image, cfg.style_layers), {}
-        return {l: grams[l] if l in grams else L.gram_matrix(feats[l]) for l in cfg.style_layers}
+        feats, grams = self._vgg(cfg, image, (), cfg.style_layers)
+        gram_fn = self._gram_fn(cfg)
+        return {l: grams[l] if l in grams else gram_fn(feats[l]) for l in cfg.style_layers}
 
     # ------------------------------------------------------------- stylize
 

@@ -13,9 +13,12 @@
 //   gram: M = H*W rows <= 2048 * 65535 = 134,215,680 (gridDim.z of its
 //     2048-row partials); gram_fs: M < 2^31 rows.
 //   tv: H*W*C elements in size_t, one row W*C < 2^31.
+//   block1 (fwd, bwd): H <= 8 * 65535 rows (gridDim.y of the backward's
+//     tiles), W < 2^31, tiles H/8 * W/16 < 2^31.
+//   epilogue (sse_diff): the element count arrives as long long.
 // The largest tensors of a 512x8192 panorama (block 1: 512*8192*64 = 268 M
 // elements; Gram rows M = 4.19 M) sit far inside; chip_smoke.py runs block 1
-// and TV at that size against their plain versions.
+// (all three forms) and TV at that size against their plain versions.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -36,6 +36,7 @@ LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (every one returns a CUDA error code)
 _SIGNATURES = {
     "st_conv3x3_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -45,6 +46,11 @@ _SIGNATURES = {
     "st_gram_rows_per_chunk": [],
     "st_tv_sse_grad": [_P, _P, _P, _P, _I, _I, _I, _P],
     "st_tv_blocks": [_I, _I],
+    "st_sse_diff": [_P, _P, _P, _P, _P, _L, _I, _P],
+    "st_sse_diff_blocks": [_L],
+    "st_block1_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "st_block1_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "st_block1_partials": [_I, _I],
 }
 
 

@@ -190,3 +190,91 @@ def tv_sse_grad(x2d: torch.Tensor, c: int, *, count: LaunchCount):
     _check_launch(lib, err, "tv_sse_grad")
     count.n += 1
     return sse, grad
+
+
+def sse_diff(f: torch.Tensor, t: torch.Tensor, *, count: LaunchCount):
+    """``(sse (1,) fp32, diff)`` for two equally shaped tensors, both bf16 or
+    both fp32: the fp32 sum of squared differences and ``f - t`` in their
+    dtype, in one pass."""
+    if f.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"sse_diff takes bf16 or fp32 tensors, got {f.dtype}")
+    _require(f, "f", f.dtype, tuple(f.shape))
+    _require(t, "t", f.dtype, tuple(f.shape))
+    n = f.numel()
+    lib = library()
+    partial = torch.empty((lib.st_sse_diff_blocks(n),), dtype=torch.float32, device=f.device)
+    sse = torch.empty((1,), dtype=torch.float32, device=f.device)
+    diff = torch.empty_like(f)
+    err = lib.st_sse_diff(_ptr(f), _ptr(t), _ptr(diff), _ptr(partial), _ptr(sse), n,
+                          int(f.dtype == torch.bfloat16), _stream())
+    _check_launch(lib, err, "sse_diff")
+    count.n += 1
+    return sse, diff
+
+
+_B1_C = 64  # channels of VGG block 1, fixed in csrc/block1.cu
+
+
+def block1_fwd(
+    src: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor, *, count: LaunchCount,
+    k1: Optional[torch.Tensor] = None, b1: Optional[torch.Tensor] = None,
+):
+    """Block 1 forward in one launch (plus the Gram's reduce pass). With
+    ``k1`` (27, 64) bf16 and ``b1`` (64,) fp32, ``src`` is the (H, W, 3) bf16
+    preprocessed image (``block1_full``) and r1 = relu(conv1_1) is written;
+    without them ``src`` is r1 (H, W, 64) bf16 itself (``block1_tail``).
+    ``k2`` (3, 3, 64, 64) bf16, ``b2`` (64,) fp32. Returns ``(pool1 (H/2, W/2,
+    64) bf16, unnormalized Gram of r1 (64, 64) fp32, r1, int8 mask (H, W, 64)
+    of conv1_2's pre-activation > 0)``."""
+    full = k1 is not None
+    h, w, cin = src.shape
+    _require(src, "src", torch.bfloat16, (h, w, 3 if full else _B1_C))
+    if h % 2 or w % 2:
+        raise ValueError(f"block 1 needs even H and W, got {(h, w)}")
+    _require(k2, "k2", torch.bfloat16, (3, 3, _B1_C, _B1_C))
+    _require(b2, "b2", torch.float32, (_B1_C,))
+    if full:
+        _require(k1, "k1", torch.bfloat16, (27, _B1_C))
+        _require(b1, "b1", torch.float32, (_B1_C,))
+    dev = src.device
+    r1 = torch.empty((h, w, _B1_C), dtype=torch.bfloat16, device=dev) if full else src
+    mask = torch.empty((h, w, _B1_C), dtype=torch.int8, device=dev)
+    pool = torch.empty((h // 2, w // 2, _B1_C), dtype=torch.bfloat16, device=dev)
+    gram = torch.empty((_B1_C, _B1_C), dtype=torch.float32, device=dev)
+    lib = library()
+    part = torch.empty((lib.st_block1_partials(h, w), _B1_C, _B1_C), dtype=torch.float32,
+                       device=dev)
+    err = lib.st_block1_fwd(
+        _ptr(src) if full else None, _ptr(k1), _ptr(b1), _ptr(r1), _ptr(k2), _ptr(b2),
+        _ptr(mask), _ptr(pool), _ptr(part), _ptr(gram), h, w, _stream(),
+    )
+    _check_launch(lib, err, "block1_fwd")
+    count.n += 1
+    return pool, gram, r1, mask
+
+
+def block1_bwd(
+    d_pool: torch.Tensor, mask: torch.Tensor, r1: torch.Tensor, s: torch.Tensor,
+    k2t: torch.Tensor, *, count: LaunchCount, k1: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Block 1 backward in one launch, from the pooled cotangent (H/2, W/2, 64)
+    bf16, the forward's int8 mask and r1, ``s`` = (dG + dG^T)/(H*W) as (64, 64)
+    bf16 and ``k2t`` from :func:`taps_transposed`. Without ``k1``: d_r1
+    (H, W, 64) bf16 (``block1_tail``). With ``k1`` (27, 64) bf16: the patch
+    cotangents of conv1_1, tap-major (9, H, W, 3) bf16 (``block1_full``)."""
+    h, w, _ = r1.shape
+    _require(r1, "r1", torch.bfloat16, (h, w, _B1_C))
+    _require(mask, "mask", torch.int8, (h, w, _B1_C))
+    _require(d_pool, "d_pool", torch.bfloat16, (h // 2, w // 2, _B1_C))
+    _require(s, "s", torch.bfloat16, (_B1_C, _B1_C))
+    _require(k2t, "k2t", torch.bfloat16, (3, 3, _B1_C, _B1_C))
+    if k1 is not None:
+        _require(k1, "k1", torch.bfloat16, (27, _B1_C))
+    shape = (h, w, _B1_C) if k1 is None else (9, h, w, 3)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=r1.device)
+    lib = library()
+    err = lib.st_block1_bwd(_ptr(d_pool), _ptr(mask), _ptr(r1), _ptr(s), _ptr(k2t), _ptr(k1),
+                            _ptr(out), h, w, _stream())
+    _check_launch(lib, err, "block1_bwd")
+    count.n += 1
+    return out

@@ -13,13 +13,17 @@ effective width ``eff = w * c / 64`` of a segment's activation:
 
 Not ported: the VMEM byte model, the 16-column alignment gate and the W
 slice count — they describe the TPU's 16 MiB scoped VMEM and its sublane
-tiling, which Hopper does not have (ROADMAP.md). Two departures follow:
+tiling, which Hopper does not have (ROADMAP.md). Three departures follow:
 
 - the reference's ``"wide"`` arm (eff > 4096, W-sliced singles) runs
   unsliced singles here: the Hopper kernels tile W in their grid;
 - beyond ``vmem.block1_fits`` the reference runs block 1 on XLA; here the
   block-1 kernel still carries it, because on the card a plain fallback is
-  not allowed and the kernel has no width limit there.
+  not allowed and the kernel has no width limit there;
+- the reference engages ``fused_block1`` (``block1_full``) only up to
+  W = 1024, where its TPU compiler stops (``api.py:919-928``), and sends
+  wider scales to the plain path; ``csrc/block1.cu`` tiles W in its grid, so
+  the port's ``fused_block1`` needs even extents and has no width limit.
 """
 
 from __future__ import annotations

@@ -23,6 +23,13 @@ At the large-image shapes (128x2048 64->128, 32x512 256->512, conv5_1's
 most 3.3e-3 (plain bf16: 1.4-1.6e-2): one transposed conv cancels less than
 the pair's two.
 
+The one-pass block-1 kernels (``block1.py``: ``block1_full``,
+``block1_tail``) use the same limits as the pair they replace. The fused
+losses (``epilogue.py``) sum in fp32 from the unrounded difference, so the
+scalar matches the fp32 plain version to summation order (:data:`TOL_LOSS`);
+their gradient is the stored difference, rounded once to the activation's
+dtype (:data:`TOL_ACT`; exact for fp32 inputs and for the fp32 Grams).
+
 Each output must also be no less accurate than the plain version run in
 bf16, up to :data:`PLAIN_RATIO` and :data:`PLAIN_SLACK` (the slack covers
 the statistics of small tensors), so a kernel that drifts while staying
@@ -33,6 +40,7 @@ TOL_ACT = 1e-2  # bf16 activations (pool1, pair outputs, conv4_2)
 TOL_GRAM = 1e-3  # fp32 Grams
 TOL_DX = 6e-2  # bf16 input gradients
 TOL_TV = 1e-5  # the fp32 TV loss and its gradient
+TOL_LOSS = 1e-5  # the fp32 content and style losses (scalars)
 
 PLAIN_RATIO = 1.5
 PLAIN_SLACK = 1e-3

@@ -84,7 +84,10 @@ def objective_terms(
 ) -> Dict[str, torch.Tensor]:
     """All loss terms from a feature dict, as fp32 scalars. The hooks and
     ``gram_overrides`` (Grams already computed by a fused kernel, whose
-    activations never materialize) are those of the JAX ``objective_terms``."""
+    activations never materialize) are those of the JAX ``objective_terms``:
+    ``gram_fn`` takes ``ops.kernels.gram.gram_matrix`` / ``pallas_gram``, and
+    ``content_loss_fn``, ``style_loss_fn``, ``tv_loss_fn`` the fused losses of
+    ``ops.kernels.epilogue``."""
     content_loss_fn = content_loss_fn or content_loss
     style_loss_fn = style_loss_fn or style_loss
     tv_loss_fn = tv_loss_fn or tv_loss

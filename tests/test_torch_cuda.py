@@ -9,7 +9,8 @@ JAX, hence ``--noconftest``):
 
 Inputs are small shapes drawn from numpy, with the channel counts of the
 VGG layers (Grams need multiples of 64), and spatial sizes off the kernels'
-8x16 tile so the ragged tile edges run. The kernel runs in bf16 (TV in fp32) against
+8x16 tile so the ragged tile edges run (the ``_narrow`` block-1 cases are
+26x12: narrower than one tile, and a ragged last tile row). The kernel runs in bf16 (TV in fp32) against
 its plain version run in fp32 on the same bf16-valued inputs, under the
 limits of ``ops/kernels/tolerances.py`` that ``chip_smoke.py`` applies too:
 an absolute limit per output, and no less accurate than the plain version
@@ -26,6 +27,7 @@ from style_transfer_tpu_torch.ops.kernels import conv_gram as CG
 from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
 from style_transfer_tpu_torch.ops.kernels import conv_single as CS
 from style_transfer_tpu_torch.ops.kernels import epilogue as EP
+from style_transfer_tpu_torch.ops.kernels import gram as KG
 from style_transfer_tpu_torch.ops.kernels import tolerances as T
 
 
@@ -92,7 +94,47 @@ def _case(name):
     if name == "tv_loss":
         x = rng.rand(1, 20, 18, 3).astype(np.float32)
         return EP.tv_loss, EP.tv_loss_plain, x, (), [()]
+    if name in ("block1_full", "block1_full_narrow"):
+        h, wd = (32, 40) if name == "block1_full" else (26, 12)
+        x = rng.randn(1, h, wd, 3).astype(np.float32)
+        w = _conv_weights(rng, 3, 64) + _conv_weights(rng, 64, 64)
+        return B1.block1_full, B1.block1_plain, x, w, [(1, h // 2, wd // 2, 64), (64, 64)]
+    if name in ("block1_tail", "block1_tail_narrow"):
+        h, wd = (32, 40) if name == "block1_tail" else (26, 12)
+        x = np.maximum(rng.randn(1, h, wd, 64), 0).astype(np.float32)
+        return (B1.block1_tail, B1.block1_tail_plain, x, _conv_weights(rng, 64, 64),
+                [(1, h // 2, wd // 2, 64), (64, 64)])
+    if name == "pallas_gram":  # N = 2, M = 2*10*18 rows: a ragged last row chunk
+        x = rng.randn(2, 10, 18, 128).astype(np.float32)
+        return KG.pallas_gram, KG.gram_plain, x, (), [(128, 128)]
+    if name in ("content_loss", "content_loss_fp32"):  # 1*5*7*24 = 840 elements
+        x = rng.rand(1, 5, 7, 24).astype(np.float32)
+        return EP.content_loss, EP.content_loss_plain, x, (rng.rand(1, 5, 7, 24).astype(np.float32),), [()]
+    if name == "content_loss_large":  # more than one block, plus a ragged tail
+        x = rng.rand(1, 33, 47, 65).astype(np.float32)
+        return EP.content_loss, EP.content_loss_plain, x, (rng.rand(1, 33, 47, 65).astype(np.float32),), [()]
+    if name in ("style_loss_64", "style_loss_512"):
+        c = int(name.rsplit("_", 1)[1])
+        x = rng.randn(c, c).astype(np.float32)
+        return EP.style_loss, EP.style_loss_plain, x, (rng.randn(c, c).astype(np.float32),), [()]
     raise KeyError(name)
+
+
+# cases whose kernel runs in fp32, and per-output limits where the rule below
+# (Gram for a 2-D cotangent, activation otherwise, then the input gradient)
+# does not apply
+FP32_CASES = {"tv_loss", "content_loss_fp32", "style_loss_64", "style_loss_512"}
+LOSS_TOLS = {
+    "tv_loss": [T.TOL_TV, T.TOL_TV],
+    "content_loss": [T.TOL_LOSS, T.TOL_ACT],
+    "content_loss_large": [T.TOL_LOSS, T.TOL_ACT],
+    "content_loss_fp32": [T.TOL_LOSS, T.TOL_LOSS],
+    "style_loss_64": [T.TOL_LOSS, T.TOL_LOSS],
+    "style_loss_512": [T.TOL_LOSS, T.TOL_LOSS],
+}
+NEW_CASES = ["block1_full", "block1_full_narrow", "block1_tail", "block1_tail_narrow",
+             "pallas_gram", "content_loss", "content_loss_large", "content_loss_fp32",
+             "style_loss_64", "style_loss_512"]
 
 
 @pytest.fixture
@@ -105,13 +147,14 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "name",
-    ["pair_gram", "pair_pool", "block2_fused", "conv_gram", "block1_packed", "tv_loss", *SINGLES],
+    ["pair_gram", "pair_pool", "block2_fused", "conv_gram", "block1_packed", "tv_loss", *SINGLES,
+     *NEW_CASES],
 )
 def test_cuda_kernel_matches_plain_version(name, cuda_device):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     kernel, plain, x, w, ct_shapes = _case(name)
-    dtype = torch.float32 if name == "tv_loss" else torch.bfloat16
+    dtype = torch.float32 if name in FP32_CASES else torch.bfloat16
     bf = lambda a: torch.from_numpy(a).to(cuda_device).to(dtype).float()  # noqa: E731
     xs, ws = bf(x), [bf(a) for a in w]
     rng = np.random.RandomState(100)
@@ -119,7 +162,8 @@ def test_cuda_kernel_matches_plain_version(name, cuda_device):
 
     def run(fn, dt):
         xr = xs.to(dt).requires_grad_(True)
-        outs = fn(xr, *ws)
+        # a loss target comes in the activation's dtype; conv weights stay fp32
+        outs = fn(xr, *([a.to(dt) for a in ws] if name in LOSS_TOLS else ws))
         outs = outs if isinstance(outs, tuple) else (outs,)
         (dx,) = torch.autograd.grad(outs, xr, grad_outputs=[c.to(o.dtype) for c, o in zip(cts, outs)])
         return [o.detach().float() for o in outs] + [dx.float()]
@@ -127,8 +171,8 @@ def test_cuda_kernel_matches_plain_version(name, cuda_device):
     k_res, p_res, r_res = run(kernel, dtype), run(plain, dtype), run(plain, torch.float32)
     torch.cuda.synchronize()
     rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))  # noqa: E731
-    if name == "tv_loss":
-        tols = [T.TOL_TV, T.TOL_TV]
+    if name in LOSS_TOLS:
+        tols = LOSS_TOLS[name]
     else:
         tols = [T.TOL_GRAM if len(s) == 2 else T.TOL_ACT for s in ct_shapes] + [T.TOL_DX]
     for i, (k, p, r, tol) in enumerate(zip(k_res, p_res, r_res, tols)):
@@ -161,6 +205,98 @@ def test_cuda_single_counts_its_launches(cuda_device):
     (dx,) = torch.autograd.grad(CS.gram_tail(x, k, b).sum(), x)
     assert CS.gram_tail_launches.n == tail_before + 4 and CS.launches.n == before + 4
     assert dx.dtype == torch.bfloat16 and torch.isfinite(dx.float()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_block1_kernels_launch_once_forward_and_once_backward(cuda_device):
+    """block1_full and block1_tail: one kernel launch forward, one backward
+    (the Gram's reduce pass aside), each under its own counter, and nothing
+    on the generic pair's."""
+    rng = np.random.RandomState(0)
+    dev = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    w = [dev(a) for a in _conv_weights(rng, 3, 64) + _conv_weights(rng, 64, 64)]
+    x = torch.randn(1, 32, 40, 3, device=cuda_device).to(torch.bfloat16).requires_grad_(True)
+    r1 = torch.rand(1, 32, 40, 64, device=cuda_device).to(torch.bfloat16).requires_grad_(True)
+    before = (B1.full_launches.n, B1.tail_launches.n, B1.launches.n, CP.launches.n)
+    pool, gram = B1.block1_full(x, *w)
+    assert B1.full_launches.n == before[0] + 1
+    (dx,) = torch.autograd.grad(pool.float().sum() + gram.sum(), x)
+    assert B1.full_launches.n == before[0] + 2
+    pool_t, gram_t = B1.block1_tail(r1, *w[2:])
+    assert B1.tail_launches.n == before[1] + 1
+    (dr1,) = torch.autograd.grad(pool_t.float().sum() + gram_t.sum(), r1)
+    assert B1.tail_launches.n == before[1] + 2
+    assert (B1.launches.n, CP.launches.n) == before[2:]
+    assert dx.shape == x.shape and dx.dtype == torch.bfloat16 and torch.isfinite(dx.float()).all()
+    assert dr1.shape == r1.shape and dr1.dtype == torch.bfloat16
+    # only the pooled cotangent, and only the Gram's: the missing one reads as zero
+    (dx_p,) = torch.autograd.grad(B1.block1_full(x, *w)[0].float().sum(), x)
+    (dx_g,) = torch.autograd.grad(B1.block1_full(x, *w)[1].sum(), x)
+    torch.testing.assert_close((dx_p.float() + dx_g.float()), dx.float(), rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_losses_are_deterministic_and_counted(cuda_device):
+    """The fused losses sum per-block partials in a fixed order: the same
+    bits run to run. Each launch counts under its own counter."""
+    f = torch.rand(1, 64, 64, 512, device=cuda_device).to(torch.bfloat16).requires_grad_(True)
+    t = torch.rand(1, 64, 64, 512, device=cuda_device).to(torch.bfloat16)
+    before = (EP.content_launches.n, EP.style_launches.n, KG.launches.n)
+    a, b = EP.content_loss(f, t), EP.content_loss(f, t)
+    assert a.item() == b.item() and EP.content_launches.n == before[0] + 2
+    (df,) = torch.autograd.grad(a, f)
+    assert df.dtype == torch.bfloat16 and EP.content_launches.n == before[0] + 2
+    g = KG.pallas_gram(f)
+    assert KG.launches.n == before[2] + 1 and g.shape == (512, 512)
+    s = EP.style_loss(g, g.T.contiguous() * 0.5)
+    assert EP.style_launches.n == before[1] + 1 and torch.isfinite(s)
+    with pytest.raises(ValueError, match="bf16"):
+        KG.pallas_gram(f.detach().float())
+    with pytest.raises(ValueError):
+        EP.content_loss(f, t.float())
+
+
+@pytest.mark.cuda
+def test_cuda_gram_matrix_dispatch_on_the_card(cuda_device, monkeypatch):
+    """``gram_matrix`` launches the kernel for a width of its set from
+    ``KERNEL_MIN_ELEMENTS`` elements on and computes the plain Gram below
+    (here 32*32*128 = 131072 elements) and for a width outside the set."""
+    f = torch.rand(1, 32, 32, 128, device=cuda_device).to(torch.bfloat16)
+    wide = torch.rand(1, 8, 8, 512, device=cuda_device).to(torch.bfloat16)
+    assert 128 in KG.KERNEL_CHANNELS and 512 not in KG.KERNEL_CHANNELS
+    before = KG.launches.n
+    small = KG.gram_matrix(f)
+    KG.gram_matrix(wide)
+    assert KG.launches.n == before
+    monkeypatch.setattr(KG, "KERNEL_MIN_ELEMENTS", f.numel())
+    sent = KG.gram_matrix(f)
+    KG.gram_matrix(wide)
+    assert KG.launches.n == before + 1
+    torch.testing.assert_close(sent, small, rtol=T.TOL_GRAM, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_block1_path_launch_counts(cuda_device):
+    """``stylize(fused_block1=True)`` on the card: block1_full carries block
+    1 (forward + backward per step, forward per capture), TV runs, and none
+    of the chain's kernels launch."""
+    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
+
+    rng = np.random.RandomState(0)
+    content = rng.rand(64, 64, 3).astype(np.float32)
+    style = rng.rand(64, 64, 3).astype(np.float32)
+    st = StyleTransfer(device=cuda_device)
+    chain = [B1.launches, CP.launches, CG.launches, CS.launches, CS.gram_tail_launches,
+             B1.tail_launches]
+    before = [c.n for c in chain]
+    full, tv = B1.full_launches.n, EP.launches.n
+    steps = 3
+    out = st.stylize(content, style,
+                     StylizeConfig(size=64, min_scale=64, iterations=(steps,), fused_block1=True))
+    assert B1.full_launches.n == full + 2 * steps + 2
+    assert EP.launches.n == tv + steps
+    assert [c.n for c in chain] == before
+    assert out.shape == (64, 64, 3) and np.isfinite(out).all()
 
 
 @pytest.mark.cuda

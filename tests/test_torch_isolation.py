@@ -17,6 +17,7 @@ from style_transfer_tpu_torch.ops.kernels import conv_gram as CG
 from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
 from style_transfer_tpu_torch.ops.kernels import conv_single as CS
 from style_transfer_tpu_torch.ops.kernels import epilogue as EP
+from style_transfer_tpu_torch.ops.kernels import gram as KG
 
 REPO = Path(__file__).resolve().parents[1]
 MODULES = [
@@ -36,6 +37,8 @@ MODULES = [
     "style_transfer_tpu_torch.ops.kernels.conv_single",
     "style_transfer_tpu_torch.ops.kernels.dispatch",
     "style_transfer_tpu_torch.ops.kernels.epilogue",
+    "style_transfer_tpu_torch.ops.kernels.gram",
+    "style_transfer_tpu_torch.ops.kernels.tolerances",
     "style_transfer_tpu_torch.utils.imgio",
     "style_transfer_tpu_torch.utils.progress",
 ]
@@ -98,7 +101,8 @@ def test_missing_nvcc_is_a_clear_error(tmp_path, monkeypatch):
 def test_build_is_keyed_on_the_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
-    assert {p.name for p in _build._sources()} == {"conv3x3.cu", "gram.cu", "tv.cu"}
+    assert {p.name for p in _build._sources()} == {
+        "block1.cu", "conv3x3.cu", "epilogue.cu", "gram.cu", "tv.cu"}
     assert _build._digest() in path.name
 
 
@@ -113,6 +117,15 @@ WRAPPERS = [
     (CS.gram_tail, 64, 2, CS.gram_tail_launches),
     (CS.make_pair_of_singles(pool=True, gram=True), 64, 4, CS.launches),
     (CS.make_wide_single(pool=True, gram=True, slices=2), 8, 2, CS.launches),
+    (B1.block1_full, 3, 4, B1.full_launches),
+]
+
+# the wrappers that take no conv weights: (fn, input shapes, counter)
+LOSS_WRAPPERS = [
+    (B1.block1_tail, [(1, 8, 8, 64), (3, 3, 64, 64), (64,)], B1.tail_launches),
+    (KG.pallas_gram, [(1, 8, 8, 64)], KG.launches),
+    (EP.content_loss, [(1, 8, 8, 64), (1, 8, 8, 64)], EP.content_launches),
+    (EP.style_loss, [(64, 64), (64, 64)], EP.style_launches),
 ]
 
 
@@ -130,5 +143,19 @@ def test_cpu_tensors_never_count_a_launch(fn, cin, nweights, count):
     weights = [torch.full((3, 3, cin, cin), 0.01), torch.zeros(cin)] * (nweights // 2)
     before = count.n
     out = fn(torch.rand(1, 8, 8, cin), *weights)
+    assert count.n == before
+    assert all(torch.isfinite(t).all() for t in (out if isinstance(out, tuple) else (out,)))
+
+
+@pytest.mark.parametrize("fn, shapes, _count", LOSS_WRAPPERS)
+def test_loss_wrappers_refuse_other_devices(fn, shapes, _count):
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        fn(*[torch.empty(shape, device="meta") for shape in shapes])
+
+
+@pytest.mark.parametrize("fn, shapes, count", LOSS_WRAPPERS)
+def test_loss_wrappers_on_cpu_never_count_a_launch(fn, shapes, count):
+    before = count.n
+    out = fn(*[0.1 * torch.rand(shape) for shape in shapes])
     assert count.n == before
     assert all(torch.isfinite(t).all() for t in (out if isinstance(out, tuple) else (out,)))
