@@ -7,8 +7,13 @@ Phases, one JSON object per line on stdout:
 
 1. device — the card, its power limit (nvidia-smi), torch and CUDA versions;
 2. build — compiles the hand-written kernels from ``style_transfer_tpu_torch/
-   csrc`` with nvcc (sm_90a) and reports the seconds and the compiler's
-   register and spill report;
+   csrc`` with nvcc (sm_90a) and reports the seconds, the compiler's
+   register and spill report, and from ``cuobjdump --dump-sass`` of the
+   built library the count of tensor-core ops (``HMMA`` / ``wgmma``) in
+   every conv and Gram kernel, with the local-memory (spill) loads and
+   stores between the first and the last of them; a conv or Gram product
+   kernel without any fails the phase (a toolkit without
+   ``cuobjdump`` is reported and does not);
 3. kernel — each kernel wrapper at the shapes the 512 px main path gives it,
    the single-conv wrappers at the shapes of the large-image path (the
    block-2 segment of the 256x4096 scale, the block-4 front of the 512x8192
@@ -32,7 +37,13 @@ Phases, one JSON object per line on stdout:
    20 CUDA-event-timed calls (which also counts host launch gaps). Block 1
    (all three forms) and TV also run once at the 512x8192 panorama's full
    size, the largest tensors of the port (the index-width check of
-   ``csrc/common.cuh``);
+   ``csrc/common.cuh``). Then the edge cases of
+   ``ops/kernels/selfcheck.py`` (the conv and Gram launchers one option at a
+   time, at sizes ragged against every tile, K = 3 and N = 3, Grams of 60
+   to 262144 rows with and without a column window; each launched twice
+   and compared bit for bit), the wrapper's tile table against the built
+   library's, and per conv shape of the 512 px and 2048 px scales the
+   achieved TFLOP/s of forward and backward-data (profiler time);
 4. segment forms — the fused pair against the pair of singles at the five
    two-conv segments of the 2048x2048 scale (effective width 2048, where
    the dispatch switches to singles): both times, and their agreement;
@@ -58,7 +69,13 @@ Phases, one JSON object per line on stdout:
    with block 1 as ``block1_full`` and as conv1_1 + ``block1_tail``: each
    loss curve against the hook-free plain fp32 objective, every kernel of
    the arm launched, and the step time with each hook on and off (at
-   256x256 and 512x512 too for ``gram_matrix``'s dispatch).
+   256x256 and 512x512 too for ``gram_matrix``'s dispatch);
+10. profile — one optimizer step of the default chain at 256x256, 512x512,
+   2048x2048 and 512x8192: wall time, device time by kernel (profiler) and
+   peak device memory;
+11. ladder — ``stylize()`` of a 2048x2048 image over 256 -> 2048, 100 steps a
+   scale, on the kernel chain and on the plain bf16 path, twice each in
+   turns: steady it/s per scale, wall clock, peak memory and final loss.
 
 Each stylize phase and each arm of the objective phase sets every launch
 count to 0 just before it runs and reads them all just after. Then a
@@ -68,6 +85,10 @@ the library call's and its bound), the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed phase raises: the
 script exits nonzero and prints no ok line. Without a CUDA device it exits
 with code 2 before doing anything else.
+
+``--phases a,b`` runs only the named phases (after device and build) and
+``--steps N`` sets the optimizer steps per scale of the stylize phases, for
+comparing two trees in turns; the ``kernels`` line needs every phase.
 """
 
 from __future__ import annotations
@@ -224,6 +245,146 @@ def _conv_flops(h, w, *chain) -> float:
 def _gram_flops(m, c) -> float:
     """F^T F forward plus F S backward."""
     return 2 * 2.0 * m * c * c
+
+
+def _cuobjdump():
+    """Path of ``cuobjdump``: on PATH, in the toolkit, or Triton's copy."""
+    import importlib.util
+    import shutil
+    from pathlib import Path
+
+    candidates = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        candidates.append(Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    return next((str(c) for c in candidates if c and Path(c).is_file()), None)
+
+
+# kernels of csrc/conv3x3.cu and csrc/gram.cu whose products must run on the
+# tensor cores (the Gram's reduce pass only adds partials)
+TENSOR_CORE_KERNELS = ("conv3x3_kernel", "gram_partial_kernel", "gram_fs_kernel")
+
+
+def tensor_core_report(lib_path):
+    """Per conv and Gram kernel of the built library: instantiations, their
+    ``HMMA`` / ``wgmma`` ops and the local-memory loads and stores
+    (register spills) between the first and the last of them, from
+    ``cuobjdump --dump-sass``. Returns (report, names of product kernels
+    without a tensor-core op); (None, []) without ``cuobjdump``."""
+    import re
+
+    tool = _cuobjdump()
+    if tool is None:
+        return None, []
+    try:
+        sass = subprocess.run([tool, "--dump-sass", str(lib_path)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+    except (subprocess.SubprocessError, OSError):
+        return None, []
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+        elif cur is not None:
+            op = re.search(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if op:
+                cur.append(op.group(1))
+    report = {}
+    for name, ops in funcs.items():
+        kernel = next((k for k in TENSOR_CORE_KERNELS + ("gram_reduce_kernel",)
+                       if k in name and "block1" not in name), None)
+        if kernel is None:
+            continue
+        mma = [i for i, op in enumerate(ops) if op.startswith("HMMA") or "GMMA" in op]
+        local = sum(op.startswith(("LDL", "STL")) for op in ops[mma[0]:mma[-1]]) if mma else 0
+        agg = report.setdefault(kernel, {"instantiations": 0, "mma": 0, "least_mma": None,
+                                         "local_between_mma": 0})
+        agg["instantiations"] += 1
+        agg["mma"] += len(mma)
+        agg["least_mma"] = len(mma) if agg["least_mma"] is None else min(agg["least_mma"], len(mma))
+        agg["local_between_mma"] += local
+        if local:  # which instantiation: its integer and boolean template arguments
+            args = re.findall(r"L[ib](\d+)E", name)
+            agg.setdefault("with_local", {})["<" + ",".join(args) + ">"] = local
+    missing = [k for k in TENSOR_CORE_KERNELS if not report.get(k, {}).get("least_mma")]
+    return report, missing
+
+
+def edge_cases(torch):
+    """The launchers of the tensor-core kernels at the edge cases of
+    ``ops/kernels/selfcheck.py``, each launched twice; fails on any error
+    beyond ``tolerances.within``, any ReLU-mask slip beyond bf16 rounding of
+    zero, and any run-to-run difference."""
+    from style_transfer_tpu_torch.ops.kernels import _build, selfcheck
+    from style_transfer_tpu_torch.ops.kernels.tolerances import within
+
+    dev = torch.device("cuda")
+    if not selfcheck.tile_table_matches(_build.library()):
+        raise AssertionError("the wrapper's conv tile table is not the built library's")
+    worst, bad, unequal = {}, [], []
+    names = selfcheck.all_cases()
+    for name in names:
+        res = selfcheck.run_case(name, dev)
+        torch.cuda.synchronize()
+        for e in res["errors"]:
+            kind = name.split("-")[0] + ":" + e["what"]
+            w = worst.setdefault(kind, {"rel": 0.0, "plain_bf16_rel": 0.0, "tol": e["tol"]})
+            if e["rel"] >= w["rel"]:
+                w.update(rel=e["rel"], plain_bf16_rel=e["plain_bf16_rel"], case=name)
+            if not within(e["rel"], e["plain_bf16_rel"], e["tol"]):
+                bad.append((name, e))
+        if res.get("mask_slip", 0.0) > res.get("mask_slip_limit", 0.0):
+            bad.append((name, {"mask_slip": res["mask_slip"], "limit": res["mask_slip_limit"]}))
+        if not res["run_to_run_equal"]:
+            unequal.append(name)
+    emit({"phase": "kernel", "kernel": "edge_cases", "cases": len(names), "worst": worst,
+          "failed": [n for n, _ in bad], "run_to_run_unequal": unequal, "tile_table": "matches"})
+    if bad or unequal:
+        raise AssertionError(f"edge cases failed: {bad[:5]}; not bit-equal run to run: {unequal[:5]}")
+
+
+# (pools before it, cin, cout) of the chain's convs
+VGG_CONVS = [("conv1_1", 0, 3, 64), ("conv1_2", 0, 64, 64), ("conv2_1", 1, 64, 128),
+             ("conv2_2", 1, 128, 128), ("conv3_1", 2, 128, 256), ("conv3_2-4", 2, 256, 256),
+             ("conv4_1", 3, 256, 512), ("conv4_2-4", 3, 512, 512), ("conv5_1", 4, 512, 512)]
+
+
+def conv_rates(torch):
+    """Achieved TFLOP/s of the bare forward and backward-data launches at
+    every conv shape of the 512 px and 2048 px scales (profiler time), with
+    ``F.conv2d`` forward beside them."""
+    import torch.nn.functional as F
+
+    from style_transfer_tpu_torch.ops.kernels import _build, _launch
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    count = _build.LaunchCount()
+    for px in (512, 2048):
+        rows = []
+        for name, pools, cin, cout in VGG_CONVS:
+            s = px >> pools
+            x = torch.randn(s, s, cin, device=dev).to(bf16)
+            w = (torch.randn(3, 3, cin, cout, device=dev) * (2.0 / (9 * cin)) ** 0.5).to(bf16)
+            b = torch.zeros(cout, device=dev).to(bf16)
+            dy = torch.randn(s, s, cout, device=dev).to(bf16)
+            w_t = _launch.taps_transposed(w)
+            xl = x.permute(2, 0, 1)[None].contiguous(memory_format=torch.channels_last)
+            wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            flops = _conv_flops(s, s, (cin, cout)) / 2
+            fwd = _device_ms(torch, lambda: _launch.conv3x3_fwd(x, w, b, y=True, count=count))
+            bwd = _device_ms(torch, lambda: _launch.conv3x3_bwd_data(dy, w_t, hw=(s, s), count=count))
+            lib = _device_ms(torch, lambda: F.conv2d(xl, wl, padding=1))
+            rows.append({"conv": name, "shape": [s, s, cin, cout],
+                         "tiles": [_launch.conv_tile(s, s, cout), _launch.conv_tile(s, s, cin)],
+                         "fwd_ms": fwd, "fwd_tflops": flops / fwd / 1e9,
+                         "bwd_ms": bwd, "bwd_tflops": flops / bwd / 1e9,
+                         "library_fwd_ms": lib, "library_fwd_tflops": flops / lib / 1e9})
+            del x, dy, xl
+        emit({"phase": "kernel", "kernel": "conv_rates", "scale": px, "convs": rows,
+              "fwd_ms_13_launches": sum(r["fwd_ms"] * (3 if "-4" in r["conv"] else 1) for r in rows),
+              "bwd_ms_13_launches": sum(r["bwd_ms"] * (3 if "-4" in r["conv"] else 1) for r in rows)})
+        torch.cuda.empty_cache()
 
 
 def kernel_checks(torch, params):
@@ -540,6 +701,8 @@ def kernel_checks(torch, params):
           "errors": errors})
     if any(e["rel"] > e["tol"] for e in errors):
         raise AssertionError(f"the W-sliced single disagrees with the unsliced one: {errors}")
+    edge_cases(torch)
+    conv_rates(torch)
     return summary
 
 
@@ -909,8 +1072,122 @@ def objective_check(torch, params, mean, std):
     return launches
 
 
-def main() -> int:
+def step_profile(torch, params, mean, std):
+    """Phase 10: where one optimizer step of the default chain spends its
+    device time, by kernel, at four image sizes: ten steps on the host clock,
+    five under the profiler."""
+    import re
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
+    from style_transfer_tpu_torch.optim import OptimizerSpec, make_step_fn
+
+    def group(name):
+        m = re.search(r"conv3x3_kernel<.*>, (true|false), \(?[A-Za-z]*\)?(\d)>", name)
+        if m:
+            if m.group(1) == "true":
+                return "conv_fwd"
+            return "conv_bwd_copied_input" if m.group(2) == "0" else "conv_bwd_staged_input"
+        for key in ("gram_partial_kernel", "gram_reduce_kernel", "gram_fs_kernel", "tv_"):
+            if key in name:
+                return key.rstrip("_")
+        return "other"
+
+    st = StyleTransfer(params, mean=mean, std=std, device="cuda")
+    r = np.random.RandomState(5)
+    for h, w in [(256, 256), (512, 512), (2048, 2048), (512, 8192)]:
+        cfg = StylizeConfig(size=(h, w))
+        content = torch.from_numpy(r.rand(1, h, w, 3).astype(np.float32)).cuda()
+        style = torch.from_numpy(r.rand(1, h, w, 3).astype(np.float32)).cuda()
+        c_t, s_t = st._capture_content(cfg, content), st._capture_style(cfg, style)
+        objective = st._build_objective(cfg)
+        step, optimizer = make_step_fn(lambda img: objective(img, c_t, s_t), OptimizerSpec())
+        carry = [content, optimizer.init(content)]
+
+        def one_step():
+            carry[0], carry[1], _ = step(carry[0], carry[1])
+
+        for _ in range(3):
+            one_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            one_step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 10 * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        by, launches = {}, {}
+        for _ in range(3):  # a trace now and then comes back without device events
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    one_step()
+                torch.cuda.synchronize()
+            by, launches = {}, {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    g = group(e.name)
+                    by[g] = by.get(g, 0.0) + e.time_range.elapsed_us() / 5 / 1e3
+                    launches[g] = launches.get(g, 0) + 1 / 5
+            if by:
+                break
+        if not by:
+            raise RuntimeError("the profiler recorded no device time on the card in three traces")
+        device = sum(by.values())
+        emit({"phase": "profile", "size": [h, w], "step_wall_ms": wall, "its_per_sec": 1e3 / wall,
+              "step_device_ms": device, "device_busy": device / wall, "device_ms_by_kernel": by,
+              "launches_per_step": launches, "peak_mib": peak})
+        del content, style, c_t, s_t, carry
+        torch.cuda.empty_cache()
+
+
+def ladder(torch, params, mean, std):
+    """Phase 11: the 2048 px ladder (256 -> 2048, 100 steps a scale) through
+    ``stylize()``, on the kernel chain and on the plain bf16 path, in turns."""
+    import dataclasses
+
+    import numpy as np
+
+    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
+
+    r = np.random.RandomState(4)
+    content = r.rand(2048, 2048, 3).astype(np.float32)
+    style = r.rand(2048, 2048, 3).astype(np.float32)
+    st = StyleTransfer(params, mean=mean, std=std, device="cuda")
+    cfg = StylizeConfig(size=2048, min_scale=256, iterations=(100,), chunk_size=10)
+    runs = []
+    for what, c in [("kernels", cfg), ("plain_bf16", dataclasses.replace(cfg, use_fused=False))] * 2:
+        out, curves, summary, seconds = _stylize(torch, st, content, style, c)
+        runs.append({"path": what, "seconds": seconds, "sizes": summary["sizes"],
+                     "its_per_sec_steady": summary["per_scale_its_per_sec"],
+                     "peak_mib": summary["peak_mib"], "final_loss": summary["final_loss"]})
+        if out.shape != (2048, 2048, 3) or not np.isfinite(out).all():
+            raise AssertionError(f"ladder ({what}): output has the wrong shape or values")
+    emit({"phase": "ladder", "steps_per_scale": 100, "runs": runs})
+
+
+PHASES = ("kernel", "segment_forms", "parity", "stylize", "large", "fused_block1", "objective",
+          "profile", "ladder")
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated phases to run (default: all; the device and build "
+                             "phases always run, the kernels line needs all)")
+    parser.add_argument("--steps", type=int, default=20,
+                        help="optimizer steps per scale of the stylize phases (default 20)")
+    args = parser.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = [p for p in phases if p not in PHASES]
+    if unknown:
+        parser.error(f"unknown phases {unknown}; choose from {PHASES}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU",
@@ -933,14 +1210,21 @@ def main() -> int:
     log = _build.library_path().with_suffix(".log")
     report = [l.strip() for l in log.read_text().splitlines()
               if "registers" in l or "spill" in l] if log.is_file() else []
-    emit({"phase": "build", "seconds": seconds, "ptxas": report})
+    tensor_cores, missing = tensor_core_report(_build.library_path())
+    emit({"phase": "build", "seconds": seconds,
+          "tensor_cores": tensor_cores if tensor_cores is not None else "cuobjdump not found or failed",
+          "ptxas": report})
+    if missing:
+        raise AssertionError(f"no tensor-core op in the built kernels: {missing}")
 
     import numpy as np
 
     from style_transfer_tpu_torch import StylizeConfig
+    from style_transfer_tpu_torch.ops.kernels import gram as KG
 
     params, mean, std = random_fixture(0)
     peak, seconds_by_phase = {}, {"build": seconds}
+    summary, launches = {}, {}
 
     def measured(phase, fn):  # runs a phase and keeps its peak device memory and its seconds
         torch.cuda.reset_peak_memory_stats()
@@ -956,59 +1240,63 @@ def main() -> int:
         seconds_by_phase[phase] = time.perf_counter() - t0
         return out
 
-    summary = measured("kernel", lambda: kernel_checks(torch, params))
-    measured("segment_forms", lambda: segment_forms(torch, params))
-    measured("parity", lambda: parity_check(torch, params, mean, std))
+    def stylize_phase(phase, seed, hw, **kwargs):
+        r = np.random.RandomState(seed)
+        cfg = kwargs.pop("cfg")
+        launches[phase] = timed(phase, lambda: stylize_check(
+            torch, params, mean, std, phase=phase, content=r.rand(*hw, 3).astype(np.float32),
+            style=r.rand(*hw, 3).astype(np.float32), cfg=cfg, **kwargs))
+
+    steps = (args.steps,)
+    opt_in = ("block1_full", "block1_tail", "pallas_gram", "content_loss", "style_loss")
+    if "kernel" in phases:
+        summary = measured("kernel", lambda: kernel_checks(torch, params))
+    if "segment_forms" in phases:
+        measured("segment_forms", lambda: segment_forms(torch, params))
+    if "parity" in phases:
+        measured("parity", lambda: parity_check(torch, params, mean, std))
     emit({"phase": "memory", "peak_mib": peak,
           "note": "the stylize phases print their peak per scale"})
-    r = np.random.RandomState(0)
-    opt_in = ("block1_full", "block1_tail", "pallas_gram", "content_loss", "style_loss")
-    launches = {"stylize": timed("stylize", lambda: stylize_check(
-        torch, params, mean, std, phase="stylize",
-        content=r.rand(512, 512, 3).astype(np.float32),
-        style=r.rand(512, 512, 3).astype(np.float32),
-        cfg=StylizeConfig(size=512, min_scale=256, iterations=(20,), chunk_size=10),
-        required=("block1_packed", "conv_pair", "conv_gram", "tv_loss"), absent=opt_in,
-    ))}
-    r = np.random.RandomState(1)
-    launches["large"] = timed("large", lambda: stylize_check(
-        torch, params, mean, std, phase="large",
-        content=r.rand(512, 8192, 3).astype(np.float32),
-        style=r.rand(512, 8192, 3).astype(np.float32),
-        cfg=StylizeConfig(size=(512, 8192), min_scale=2048, iterations=(20,), chunk_size=10),
-        required=("block1_packed", "conv_single", "gram_tail", "conv_gram", "tv_loss"),
-        absent=("conv_pair",) + opt_in,
-    ))
-
-    from style_transfer_tpu_torch.ops.kernels import gram as KG
-
-    r = np.random.RandomState(2)
-    launches["fused_block1"] = timed("fused_block1", lambda: stylize_check(
-        torch, params, mean, std, phase="fused_block1",
-        content=r.rand(1024, 1024, 3).astype(np.float32),
-        style=r.rand(1024, 1024, 3).astype(np.float32),
-        cfg=StylizeConfig(size=1024, min_scale=512, iterations=(20,), chunk_size=10,
-                          fused_block1=True),
-        required=("block1_full", "tv_loss") + (("pallas_gram",) if KG.KERNEL_CHANNELS else ()),
-        absent=("block1_packed", "conv_pair", "conv_single", "gram_tail", "conv_gram",
-                "block1_tail", "content_loss", "style_loss")
-        + (() if KG.KERNEL_CHANNELS else ("pallas_gram",)),
-    ))
-    launches.update(measured("objective", lambda: objective_check(torch, params, mean, std)))
-    emit({"phase": "memory", "peak_mib": {"objective": peak["objective"]},
+    if "stylize" in phases:
+        stylize_phase("stylize", 0, (512, 512),
+                      cfg=StylizeConfig(size=512, min_scale=256, iterations=steps, chunk_size=10),
+                      required=("block1_packed", "conv_pair", "conv_gram", "tv_loss"), absent=opt_in)
+    if "large" in phases:
+        stylize_phase("large", 1, (512, 8192),
+                      cfg=StylizeConfig(size=(512, 8192), min_scale=2048, iterations=steps,
+                                        chunk_size=10),
+                      required=("block1_packed", "conv_single", "gram_tail", "conv_gram", "tv_loss"),
+                      absent=("conv_pair",) + opt_in)
+    if "fused_block1" in phases:
+        stylize_phase("fused_block1", 2, (1024, 1024),
+                      cfg=StylizeConfig(size=1024, min_scale=512, iterations=steps, chunk_size=10,
+                                        fused_block1=True),
+                      required=("block1_full", "tv_loss")
+                      + (("pallas_gram",) if KG.KERNEL_CHANNELS else ()),
+                      absent=("block1_packed", "conv_pair", "conv_single", "gram_tail", "conv_gram",
+                              "block1_tail", "content_loss", "style_loss")
+                      + (() if KG.KERNEL_CHANNELS else ("pallas_gram",)))
+    if "objective" in phases:
+        launches.update(measured("objective", lambda: objective_check(torch, params, mean, std)))
+    if "profile" in phases:
+        timed("profile", lambda: step_profile(torch, params, mean, std))
+    if "ladder" in phases:
+        timed("ladder", lambda: ladder(torch, params, mean, std))
+    emit({"phase": "memory", "peak_mib": {"objective": peak.get("objective")},
           "seconds_by_phase": seconds_by_phase})
 
-    emit({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "style_transfer_tpu_torch/" + sources[0],
-         "sources": ["style_transfer_tpu_torch/" + s for s in sources],
-         "replaces": replaces, "launches": launches[phase][name],
-         "max_abs_err": summary[name]["max_abs_err"],
-         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"],
-         "bound_ms": summary[name]["bound_ms"], "bound_by": summary[name]["bound_by"],
-         "library_ms": summary[name]["library_ms"]}
-        for name, (replaces, sources, phase) in KERNEL_META.items()
-    ]})
+    if all(p in phases for p in PHASES):
+        emit({"kernels": [
+            {"name": name, "route": "cuda",
+             "source": "style_transfer_tpu_torch/" + sources[0],
+             "sources": ["style_transfer_tpu_torch/" + s for s in sources],
+             "replaces": replaces, "launches": launches[phase][name],
+             "max_abs_err": summary[name]["max_abs_err"],
+             "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"],
+             "bound_ms": summary[name]["bound_ms"], "bound_by": summary[name]["bound_by"],
+             "library_ms": summary[name]["library_ms"]}
+            for name, (replaces, sources, phase) in KERNEL_META.items()
+        ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

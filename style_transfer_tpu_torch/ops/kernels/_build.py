@@ -39,11 +39,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> argtypes (every one returns a CUDA error code)
 _SIGNATURES = {
-    "st_conv3x3_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "st_conv3x3_bwd_data": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "st_gram": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "st_gram_fs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "st_gram_rows_per_chunk": [],
+    "st_conv3x3_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "st_conv3x3_bwd_data": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "st_conv3x3_tile_info": [_I, ctypes.POINTER(ctypes.c_int)],
+    "st_gram": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "st_gram_fs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "st_tv_sse_grad": [_P, _P, _P, _P, _I, _I, _I, _P],
     "st_tv_blocks": [_I, _I],
     "st_sse_diff": [_P, _P, _P, _P, _P, _L, _I, _P],

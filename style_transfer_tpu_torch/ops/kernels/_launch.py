@@ -14,7 +14,83 @@ from typing import Optional, Tuple
 
 import torch
 
+from style_transfer_tpu_torch.ops.kernels import _weights
 from style_transfer_tpu_torch.ops.kernels._build import LaunchCount, library
+
+#: Streaming multiprocessors of the card the tiles are chosen for (H100 SXM).
+SM_COUNT = 132
+#: Shared memory a block may use on it, in bytes.
+MAX_SHARED_BYTES = 232448
+#: Reduction channels per chunk of ``csrc/conv3x3.cu`` (its ``KC``).
+CONV_KC = 16
+
+#: Tile configurations of ``csrc/conv3x3.cu``: index -> (pixel rows, pixel
+#: columns, output channels, warps, pipeline stages). ``chip_smoke.py`` holds
+#: the table against the built library (``st_conv3x3_tile_info``).
+CONV_TILES = {
+    0: (8, 16, 128, 8, 2),
+    1: (16, 16, 64, 8, 3),
+    2: (8, 8, 64, 4, 2),
+    3: (16, 16, 8, 8, 2),
+}
+
+
+def conv_tile_smem(tile: int) -> int:
+    """Dynamic shared memory of a block of tile configuration ``tile``, in
+    bytes: the larger of its pipeline stages (haloed bf16 input tile at 48
+    bytes a pixel plus the 9 x 16 weight rows, padded by 16 bytes where they
+    are wider than one ldmatrix row) and the fp32 output tile of the
+    epilogue (rows padded by 32 bytes)."""
+    th, tw, bn, _, stages = CONV_TILES[tile]
+    a_bytes = (th + 2) * (tw + 2) * (CONV_KC + 8) * 2
+    b_bytes = 9 * CONV_KC * (bn if bn == 8 else bn + 8) * 2
+    return max(stages * (a_bytes + b_bytes), th * tw * (bn + 8) * 4)
+
+
+def conv_blocks(tile: int, h: int, w: int, n: int) -> int:
+    """Blocks of the grid that tile configuration ``tile`` gives an (h, w)
+    image with ``n`` output channels."""
+    th, tw, bn, _, _ = CONV_TILES[tile]
+    return -(-h // th) * -(-w // tw) * -(-n // bn)
+
+
+def conv_tile(h: int, w: int, n: int) -> int:
+    """The tile configuration for an (h, w) image and ``n`` output channels:
+    the n8 tile for up to 8 channels (conv1_1's backward-data), else the
+    128-channel tile for more than 64 channels and the 16x16-pixel 64-channel
+    tile otherwise — unless that leaves more than a quarter of the card's SMs
+    without a block, in which case the small 8x8-pixel 64-channel tile fills
+    it (the deep layers of small scales). On the H100, 128 blocks of the
+    large tile beat 512 of the small one at 128x128 with 128 channels and
+    about tie it at 64x64 with 512, while 32 blocks (32x32 with 512) lose
+    clearly to 128 small ones (``chip_smoke.py`` prints the rate of every
+    conv shape)."""
+    if n <= 8:
+        return 3
+    tile = 0 if n > 64 else 1
+    return tile if 4 * conv_blocks(tile, h, w, n) >= 3 * SM_COUNT else 2
+
+
+#: Rows of F staged per step by ``csrc/gram.cu`` (its ``GR``); a chunk of
+#: rows is a multiple of it.
+GRAM_ROW_STEP = 64
+#: Blocks the Gram's first pass should at least have: two per SM.
+GRAM_MIN_BLOCKS = 2 * SM_COUNT
+
+
+def gram_tiles(c: int) -> int:
+    """64x64 tiles of the (c, c) Gram on and above the diagonal."""
+    t = c // 64
+    return t * (t + 1) // 2
+
+
+def gram_rows_per_chunk(m: int, c: int) -> int:
+    """Rows of the (m, c) activation that one block of the Gram's first pass
+    sums: the largest multiple of :data:`GRAM_ROW_STEP` that still gives
+    :data:`GRAM_MIN_BLOCKS` blocks (tiles x chunks), and one step where ``m``
+    is too small for that."""
+    want = -(-GRAM_MIN_BLOCKS // gram_tiles(c))
+    return max(GRAM_ROW_STEP, m // want // GRAM_ROW_STEP * GRAM_ROW_STEP)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -69,17 +145,24 @@ def conv3x3_fwd(
     lib = library()
     err = lib.st_conv3x3_fwd(
         _ptr(x), _ptr(w), _ptr(b), _ptr(out_y), _ptr(out_m), _ptr(out_p),
-        h, wd, k, n, _stream(),
+        h, wd, k, n, conv_tile(h, wd, n), _stream(),
     )
     _check_launch(lib, err, "conv3x3_fwd")
     count.n += 1
     return out_y, out_m, out_p
 
 
+def taps(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, Cin, Cout) HWIO taps, or a bias, as the contiguous bf16 operand
+    of :func:`conv3x3_fwd`, prepared once per tensor (``_weights``)."""
+    return _weights.bf16(w)
+
+
 def taps_transposed(w: torch.Tensor) -> torch.Tensor:
     """(3, 3, Cin, Cout) HWIO taps -> the backward-data operand (3, 3, Cout,
-    Cin): spatially flipped, channels swapped, bf16, contiguous."""
-    return w.flip(0, 1).transpose(2, 3).to(torch.bfloat16).contiguous()
+    Cin): spatially flipped, channels swapped, bf16, contiguous; prepared
+    once per tensor (``_weights``)."""
+    return _weights.taps_transposed(w)
 
 
 def conv3x3_bwd_data(
@@ -117,7 +200,7 @@ def conv3x3_bwd_data(
     lib = library()
     err = lib.st_conv3x3_bwd_data(
         _ptr(dy), _ptr(in_mask), int(unpool), _ptr(pre_add), _ptr(pre_gate), _ptr(w_t),
-        _ptr(add), _ptr(gate), _ptr(out), h, wd, k, n, _stream(),
+        _ptr(add), _ptr(gate), _ptr(out), h, wd, k, n, conv_tile(h, wd, n), _stream(),
     )
     _check_launch(lib, err, "conv3x3_bwd_data")
     count.n += 1
@@ -147,10 +230,10 @@ def gram(
         raise ValueError(f"Gram channels must be a multiple of 64, got {c}")
     win = _window(cols, m)
     lib = library()
-    rows = lib.st_gram_rows_per_chunk()
+    rows = gram_rows_per_chunk(m, c)
     part = torch.empty((-(-m // rows), c, c), dtype=torch.float32, device=f.device)
     out = torch.empty((c, c), dtype=torch.float32, device=f.device)
-    err = lib.st_gram(_ptr(f), _ptr(part), _ptr(out), m, c, *win, _stream())
+    err = lib.st_gram(_ptr(f), _ptr(part), _ptr(out), m, c, rows, *win, _stream())
     _check_launch(lib, err, "gram")
     count.n += 1
     return out
@@ -158,24 +241,26 @@ def gram(
 
 def gram_fs(
     f: torch.Tensor, s: torch.Tensor, *, count: LaunchCount, relu_gate: bool = False,
-    cols: Optional[Tuple[int, int, int]] = None,
+    out_bf16: bool = False, cols: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
-    """``F S`` for F (M, C) bf16 and S (C, C) bf16: fp32 (M, C), or with
-    ``relu_gate`` the bf16 ``where(F > 0, F S, 0)``. With ``cols`` (as in
-    :func:`gram`) the rows outside the column window are zero."""
+    """``F S`` for F (M, C) bf16 and S (C, C) bf16: fp32 (M, C); with
+    ``out_bf16`` rounded once to bf16; with ``relu_gate`` the bf16
+    ``where(F > 0, F S, 0)``. With ``cols`` (as in :func:`gram`) the rows
+    outside the column window are zero."""
     m, c = f.shape
     _require(f, "f", torch.bfloat16, (m, c))
     _require(s, "s", torch.bfloat16, (c, c))
     if c % 64:
         raise ValueError(f"Gram channels must be a multiple of 64, got {c}")
     win = _window(cols, m)
-    out32 = None if relu_gate else torch.empty((m, c), dtype=torch.float32, device=f.device)
-    out16 = torch.empty((m, c), dtype=torch.bfloat16, device=f.device) if relu_gate else None
+    half = relu_gate or out_bf16
+    out = torch.empty((m, c), dtype=torch.bfloat16 if half else torch.float32, device=f.device)
     lib = library()
-    err = lib.st_gram_fs(_ptr(f), _ptr(s), _ptr(out32), _ptr(out16), m, c, *win, _stream())
+    err = lib.st_gram_fs(_ptr(f), _ptr(s), None if half else _ptr(out), _ptr(out) if half else None,
+                         int(relu_gate), m, c, *win, _stream())
     _check_launch(lib, err, "gram_fs")
     count.n += 1
-    return out16 if relu_gate else out32
+    return out
 
 
 def tv_sse_grad(x2d: torch.Tensor, c: int, *, count: LaunchCount):

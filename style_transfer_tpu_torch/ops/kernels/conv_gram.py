@@ -43,9 +43,8 @@ class ConvGramFunction(torch.autograd.Function):
             raise ValueError(f"conv_gram expects (1, H, W, C), got {tuple(x.shape)}")
         if x.dtype != torch.bfloat16:
             raise ValueError(f"the conv_gram kernel takes bf16 input, got {x.dtype}")
-        bf = torch.bfloat16
         y, _, _ = _launch.conv3x3_fwd(
-            x[0].contiguous(), k.to(bf).contiguous(), b.to(bf).contiguous(),
+            x[0].contiguous(), _launch.taps(k), _launch.taps(b),
             y=True, count=launches,
         )
         ctx.save_for_backward(y, k)

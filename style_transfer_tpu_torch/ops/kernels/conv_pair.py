@@ -58,13 +58,12 @@ class PairFunction(torch.autograd.Function):
             raise ValueError(f"conv pair expects (1, even H, even W, C), got {tuple(x.shape)}")
         if x.dtype != torch.bfloat16:
             raise ValueError(f"the conv-pair kernel takes bf16 input, got {x.dtype}")
-        bf = torch.bfloat16
         r1, _, _ = _launch.conv3x3_fwd(
-            x[0].contiguous(), k1.to(bf).contiguous(), b1.to(bf).contiguous(),
+            x[0].contiguous(), _launch.taps(k1), _launch.taps(b1),
             y=True, count=count,
         )
         y2, mask2, pooled = _launch.conv3x3_fwd(
-            r1, k2.to(bf).contiguous(), b2.to(bf).contiguous(),
+            r1, _launch.taps(k2), _launch.taps(b2),
             y=not pool, mask=True, pool=pool, count=count,
         )
         out = pooled if pool else y2

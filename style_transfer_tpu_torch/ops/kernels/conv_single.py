@@ -88,9 +88,8 @@ class SingleFunction(torch.autograd.Function):
         if x.dtype != torch.bfloat16:
             raise ValueError(f"the conv-single kernel takes bf16 input, got {x.dtype}")
         _, h, w, _ = x.shape
-        bf = torch.bfloat16
         y, _, pooled = _launch.conv3x3_fwd(
-            x[0].contiguous(), k.to(bf).contiguous(), b.to(bf).contiguous(),
+            x[0].contiguous(), _launch.taps(k), _launch.taps(b),
             y=True, pool=pool, count=count,
         )
         ctx.set_materialize_grads(False)

@@ -5,32 +5,31 @@ Counterpart of ``style_transfer_tpu/ops/pallas/gram.py`` (``pallas_gram``,
 activations -> ``(C, C)`` fp32 Gram normalized by ``M = N*H*W``; the VJP is
 ``dF = F (g + g^T) / M`` in the activation's dtype.
 
-On a CUDA tensor the forward is ``csrc/gram.cu`` — per-block partial sums over
-chunks of rows, added in a fixed order by a second pass — the kernel the
-chain's fused Grams use, here without a column window. It takes bf16
-activations with C a multiple of 64 (every VGG width); another dtype raises,
-as the chain does. The TPU kernel's backward is outside its Pallas kernel (a
-plain fp32 einsum), so here it is a plain fp32 ``torch.matmul`` too. The
-``F S`` kernel of ``csrc/gram.cu`` (``_launch.gram_fs``, S rounded to bf16)
-computes the same product; ``chip_smoke.py`` times both and PERF.md has the
-numbers: the matmul is faster at C = 256 and 512, ``gram_fs`` at 64 and 128.
+On a CUDA tensor both directions run on ``csrc/gram.cu`` (bf16 ``mma.sync``
+on the tensor cores): the forward sums per-block partial tiles over chunks of
+rows, upper triangle only, and adds them in a fixed order in a second pass —
+the kernel the chain's fused Grams use, here without a column window; the
+backward is its ``F S`` kernel with ``S = (g + g^T) / M`` rounded to bf16, as
+the chain's wrappers round it, and one bf16 rounding of the result. It takes
+bf16 activations with C a multiple of 64 (every VGG width); another dtype
+raises, as the chain does. The TPU kernel's backward is outside its Pallas
+kernel (a plain fp32 einsum); on the H100 the ``F S`` kernel takes half the
+time of that fp32 product at every shape ``chip_smoke.py`` times (PERF.md).
 
 On a CPU tensor it runs :func:`gram_plain` under autograd.
 
 :func:`gram_matrix` dispatches by channel width through :data:`KERNEL_CHANNELS`,
 read at call time; it is the counterpart of the reference's
-``_PALLAS_CHANNELS`` and the tests patch both to the same widths. The widths
-in it are those where the kernel made the 1024 px objective step faster on
-the H100 than the plain fp32 contraction, by more than the rounds of one
-setting spread (``chip_smoke.py``, phase ``objective``; the numbers are in
-PERF.md): the plain version casts the bf16 activation to fp32 and runs an fp32
-product outside the tensor cores, which the kernel's bf16 reads undercut.
-C = 512 is left out: its two shapes won nothing that the step's device or
-wall time could show. The kernel's time has a floor of about 0.14 ms (forward
-and backward), so below :data:`KERNEL_MIN_ELEMENTS` (8.4 M elements, 16 MiB of
-bf16: every layer of a 256 px image, conv3_1 of a 512 px one) the plain
-contraction is as fast or faster and keeps the activation. On the TPU the set
-is empty and there is no such gate.
+``_PALLAS_CHANNELS`` and the tests patch both to the same widths. The set
+holds every VGG width: on the H100 the kernel made the objective step's
+device time shorter at each of them, at 1024, 512 and 256 px
+(``chip_smoke.py``, phase ``objective``; the numbers are in PERF.md) — the
+plain version casts the bf16 activation to fp32 and runs an fp32 product
+outside the tensor cores. On the host the two paths cost the same per call.
+:data:`KERNEL_MIN_ELEMENTS` is the least activation size that goes to the
+kernel; it is 0 since the tensor-core kernel has no floor worth a gate (it
+was 2^23 while the kernel ran on the CUDA cores). On the TPU the set is empty
+and there is no such gate.
 
 Left out: the row-tile budget of the TPU kernel (``_tile_m``, ``_TILE_BYTES``)
 and its zero padding of the rows to a tile multiple.
@@ -44,14 +43,14 @@ from style_transfer_tpu_torch.ops import losses
 from style_transfer_tpu_torch.ops.kernels import _launch
 from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
 
-#: Kernel launches made by :func:`pallas_gram` (its forward).
+#: Kernel launches made by :func:`pallas_gram` (forward and backward).
 launches = LaunchCount()
 
 #: Channel widths that :func:`gram_matrix` sends to the kernel.
-KERNEL_CHANNELS: frozenset = frozenset({64, 128, 256})
+KERNEL_CHANNELS: frozenset = frozenset({64, 128, 256, 512})
 
 #: Least size of the activation, in elements, at which it sends them there.
-KERNEL_MIN_ELEMENTS: int = 1 << 23
+KERNEL_MIN_ELEMENTS: int = 0
 
 
 def gram_plain(feat):
@@ -72,8 +71,8 @@ class GramFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (f,) = ctx.saved_tensors
-        sym = (g + g.T) / float(f.shape[0])
-        return (f.to(torch.float32) @ sym).to(f.dtype).view(ctx.shape)
+        sym = ((g + g.T) / float(f.shape[0])).to(torch.bfloat16).contiguous()
+        return _launch.gram_fs(f, sym, out_bf16=True, count=launches).view(ctx.shape)
 
 
 def pallas_gram(feat):

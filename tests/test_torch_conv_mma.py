@@ -1,0 +1,142 @@
+"""Host-side code of the tensor-core conv and Gram kernels, on the CPU.
+
+The kernels themselves (``csrc/conv3x3.cu``, ``csrc/gram.cu``) run only on
+the card (``tests/test_torch_cuda.py``). What decides their operands, tiles
+and scratch lives in Python and is tested here without a GPU: the
+backward-data weight layout against a numpy reference and its inverse, the
+once-per-tensor weight cache, the tile chooser and its shared-memory model
+for every conv shape of VGG-19 at scales 256 to 8192 wide, and the Gram's
+rows per chunk.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from style_transfer_tpu_torch.ops.kernels import _launch, _weights
+
+# (cin, cout) of the VGG-19 convs up to conv5_1, with the pools before them
+VGG_CONVS = [(0, 3, 64), (0, 64, 64), (1, 64, 128), (1, 128, 128), (2, 128, 256), (2, 256, 256),
+             (3, 256, 512), (3, 512, 512), (4, 512, 512)]
+SCALES = [(256, 256), (362, 362), (512, 512), (724, 724), (1024, 1024), (2048, 2048),
+          (128, 2048), (256, 4096), (512, 8192)]
+
+
+def _conv_shapes():
+    """(h, w, k, n) of every forward and backward-data launch of the chain."""
+    out = []
+    for h, w in SCALES:
+        for pools, cin, cout in VGG_CONVS:
+            hh, ww = h >> pools, w >> pools
+            out.append((hh, ww, cin, cout))   # forward
+            out.append((hh, ww, cout, cin))   # backward-data
+    return out
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 64), (64, 128), (5, 7)])
+def test_transposed_taps_match_numpy_and_invert(cin, cout):
+    rng = np.random.RandomState(cin)
+    w = rng.randn(3, 3, cin, cout).astype(np.float32)
+    got = _weights.transpose_taps(torch.from_numpy(w))
+    assert got.dtype == torch.bfloat16 and got.is_contiguous() and got.shape == (3, 3, cout, cin)
+    want = np.empty((3, 3, cout, cin), np.float32)
+    for a in range(3):
+        for b in range(3):
+            want[a, b] = w[2 - a, 2 - b].T
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  torch.from_numpy(want).to(torch.bfloat16).float().numpy())
+    back = _weights.transpose_taps(got)
+    np.testing.assert_array_equal(back.float().numpy(),
+                                  torch.from_numpy(w).to(torch.bfloat16).float().numpy())
+
+
+def test_transposed_taps_give_the_input_gradient():
+    """A SAME correlation with the transposed taps is the conv's VJP to its
+    input: the contract ``conv3x3_bwd_data`` relies on."""
+    import torch.nn.functional as F
+
+    rng = np.random.RandomState(0)
+    w = torch.from_numpy(rng.randn(3, 3, 4, 6).astype(np.float32)).to(torch.bfloat16).float()
+    x = torch.from_numpy(rng.randn(1, 4, 7, 5).astype(np.float32)).requires_grad_(True)
+    dy = torch.from_numpy(rng.randn(1, 6, 7, 5).astype(np.float32))
+    (dx,) = torch.autograd.grad(F.conv2d(x, w.permute(3, 2, 0, 1), padding=1), x, dy)
+    w_t = _weights.transpose_taps(w).float()
+    got = F.conv2d(dy, w_t.permute(3, 2, 0, 1), padding=1)
+    torch.testing.assert_close(got, dx, rtol=1e-5, atol=1e-5)
+
+
+def test_weight_cache_prepares_once_per_tensor_and_again_after_an_update():
+    _weights.clear()
+    w = torch.randn(3, 3, 8, 16)
+    before = _weights.preparations
+    a = _launch.taps_transposed(w)
+    b = _launch.taps_transposed(w)
+    assert a is b and _weights.preparations == before + 1
+    fwd = _launch.taps(w)
+    assert _launch.taps(w) is fwd and _weights.preparations == before + 2
+    assert fwd.dtype == torch.bfloat16 and fwd.shape == w.shape
+    w.mul_(2.0)  # in place: same storage, new version
+    c = _launch.taps_transposed(w)
+    assert c is not a and _weights.preparations == before + 3
+    torch.testing.assert_close(c.float(), 2.0 * a.float())
+    # another tensor of the same shape is another entry
+    other = torch.randn(3, 3, 8, 16)
+    assert _launch.taps_transposed(other) is not c
+    # a bf16 contiguous tensor is its own forward operand
+    ready = w.to(torch.bfloat16)
+    assert _launch.taps(ready) is ready
+
+
+def test_weight_cache_is_bounded_and_keeps_its_sources_alive():
+    _weights.clear()
+    made = [_launch.taps(torch.full((4,), float(i))) for i in range(_weights.MAX_ENTRIES + 10)]
+    assert len(_weights._cache) == _weights.MAX_ENTRIES
+    # every survivor still answers for its own source (no address was reused)
+    for (src, out) in _weights._cache.values():
+        assert float(out[0]) == float(src[0])
+    assert float(made[-1][0]) == _weights.MAX_ENTRIES + 9
+    _weights.clear()
+    assert not _weights._cache
+
+
+@pytest.mark.parametrize("tile", sorted(_launch.CONV_TILES))
+def test_tile_shared_memory_fits_two_blocks_on_an_sm(tile):
+    smem = _launch.conv_tile_smem(tile)
+    assert 0 < smem <= _launch.MAX_SHARED_BYTES
+    # two blocks (and 1 KB the CUDA runtime reserves for each) share an SM's 228 KB
+    assert 2 * (smem + 1024) <= 228 * 1024
+    th, tw, bn, warps, stages = _launch.CONV_TILES[tile]
+    assert th % 2 == 0 and tw % 8 == 0 and stages >= 2
+    assert (th * tw // 16) * max(bn // 8, 1) % warps == 0  # whole MMA tiles per warp
+
+
+@pytest.mark.parametrize("h,w,k,n", _conv_shapes())
+def test_tile_chooser_covers_every_vgg_shape(h, w, k, n):
+    tile = _launch.conv_tile(h, w, n)
+    th, tw, bn, _, _ = _launch.CONV_TILES[tile]
+    assert _launch.conv_tile_smem(tile) <= _launch.MAX_SHARED_BYTES
+    blocks = _launch.conv_blocks(tile, h, w, n)
+    assert blocks >= 1
+    assert th * -(-h // th) >= h and tw * -(-w // tw) >= w and bn * -(-n // bn) >= n
+    assert -(-h // th) <= 65535 and -(-n // bn) <= 65535  # gridDim.y / .z
+    if n <= 8:
+        assert bn == 8  # conv1_1's backward-data does not pay for 64 columns
+    elif 4 * blocks < 3 * _launch.SM_COUNT:
+        assert tile == 2  # nothing smaller to fill the card with
+
+
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+@pytest.mark.parametrize("m", [60, 1024, 4096, 16384, 65536, 262144, 1048576, 4194304])
+def test_gram_rows_per_chunk_fills_the_card_or_covers_m(m, c):
+    rows = _launch.gram_rows_per_chunk(m, c)
+    assert rows >= _launch.GRAM_ROW_STEP and rows % _launch.GRAM_ROW_STEP == 0
+    chunks = -(-m // rows)
+    assert chunks * rows >= m and chunks <= 65535
+    blocks = chunks * _launch.gram_tiles(c)
+    assert blocks >= _launch.GRAM_MIN_BLOCKS or rows == _launch.GRAM_ROW_STEP
+    # scratch stays small beside the activation: at most 16 MiB of partials
+    assert chunks * c * c * 4 <= 16 * 2**20 or rows == _launch.GRAM_ROW_STEP
+
+
+def test_gram_tiles_count_the_upper_triangle():
+    assert [_launch.gram_tiles(c) for c in (64, 128, 256, 512)] == [1, 3, 10, 36]

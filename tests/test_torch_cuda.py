@@ -9,8 +9,10 @@ JAX, hence ``--noconftest``):
 
 Inputs are small shapes drawn from numpy, with the channel counts of the
 VGG layers (Grams need multiples of 64), and spatial sizes off the kernels'
-8x16 tile so the ragged tile edges run (the ``_narrow`` block-1 cases are
-26x12: narrower than one tile, and a ragged last tile row). The kernel runs in bf16 (TV in fp32) against
+tiles (8x8, 8x16 and 16x16 pixels) so the ragged tile edges run (the
+``_narrow`` block-1 cases are 26x12: narrower than one tile, and a ragged
+last tile row); ``ops/kernels/selfcheck.py`` adds the launchers of the
+tensor-core conv and Gram kernels one option at a time. The kernel runs in bf16 (TV in fp32) against
 its plain version run in fp32 on the same bf16-valued inputs, under the
 limits of ``ops/kernels/tolerances.py`` that ``chip_smoke.py`` applies too:
 an absolute limit per output, and no less accurate than the plain version
@@ -28,6 +30,7 @@ from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
 from style_transfer_tpu_torch.ops.kernels import conv_single as CS
 from style_transfer_tpu_torch.ops.kernels import epilogue as EP
 from style_transfer_tpu_torch.ops.kernels import gram as KG
+from style_transfer_tpu_torch.ops.kernels import selfcheck
 from style_transfer_tpu_torch.ops.kernels import tolerances as T
 
 
@@ -180,6 +183,32 @@ def test_cuda_kernel_matches_plain_version(name, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", selfcheck.all_cases())
+def test_cuda_tensor_core_kernel_edge_case(name, cuda_device):
+    """The launchers of the tensor-core conv and Gram kernels, one option at
+    a time, at sizes ragged against every tile and at conv1_1's channel
+    counts (``ops/kernels/selfcheck.py``): within the limits of
+    ``tolerances.py``, the ReLU mask wrong only within bf16 rounding of zero,
+    and bit-equal from one launch to the next."""
+    res = selfcheck.run_case(name, cuda_device)
+    torch.cuda.synchronize()
+    for e in res["errors"]:
+        assert T.within(e["rel"], e["plain_bf16_rel"], e["tol"]), (name, e)
+    assert res.get("mask_slip", 0.0) <= res.get("mask_slip_limit", 0.0), (name, res)
+    assert res["run_to_run_equal"], name
+    assert res["launches"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_tile_table_is_the_built_librarys(cuda_device):
+    """The wrapper's tile table and shared-memory sizes are those compiled
+    into ``csrc/conv3x3.cu``."""
+    from style_transfer_tpu_torch.ops.kernels import _build
+
+    assert selfcheck.tile_table_matches(_build.library())
+
+
+@pytest.mark.cuda
 def test_cuda_tensors_launch_the_kernels(cuda_device):
     """A CUDA tensor goes through the kernel (the launch count grows), never
     through the plain version."""
@@ -263,7 +292,8 @@ def test_cuda_gram_matrix_dispatch_on_the_card(cuda_device, monkeypatch):
     (here 32*32*128 = 131072 elements) and for a width outside the set."""
     f = torch.rand(1, 32, 32, 128, device=cuda_device).to(torch.bfloat16)
     wide = torch.rand(1, 8, 8, 512, device=cuda_device).to(torch.bfloat16)
-    assert 128 in KG.KERNEL_CHANNELS and 512 not in KG.KERNEL_CHANNELS
+    monkeypatch.setattr(KG, "KERNEL_CHANNELS", frozenset({64, 128, 256}))
+    monkeypatch.setattr(KG, "KERNEL_MIN_ELEMENTS", f.numel() + 1)
     before = KG.launches.n
     small = KG.gram_matrix(f)
     KG.gram_matrix(wide)
