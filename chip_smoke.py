@@ -10,10 +10,11 @@ Phases, one JSON object per line on stdout:
    csrc`` with nvcc (sm_90a) and reports the seconds, the compiler's
    register and spill report, and from ``cuobjdump --dump-sass`` of the
    built library the count of tensor-core ops (``HMMA`` / ``wgmma``) in
-   every conv and Gram kernel, with the local-memory (spill) loads and
-   stores between the first and the last of them; a conv or Gram product
-   kernel without any fails the phase (a toolkit without
-   ``cuobjdump`` is reported and does not);
+   every conv, Gram and block-1 kernel, with the local-memory (spill) loads
+   and stores between the first and the last of them; a conv, Gram product
+   or block-1 kernel without any fails the phase (a toolkit without
+   ``cuobjdump`` is reported and does not); ``block1_ptxas`` holds the
+   registers and spill bytes of each instantiation of ``csrc/block1.cu``;
 3. kernel — each kernel wrapper at the shapes the 512 px main path gives it,
    the single-conv wrappers at the shapes of the large-image path (the
    block-2 segment of the 256x4096 scale, the block-4 front of the 512x8192
@@ -40,10 +41,16 @@ Phases, one JSON object per line on stdout:
    ``csrc/common.cuh``). Then the edge cases of
    ``ops/kernels/selfcheck.py`` (the conv and Gram launchers one option at a
    time, at sizes ragged against every tile, K = 3 and N = 3, Grams of 60
-   to 262144 rows with and without a column window; each launched twice
-   and compared bit for bit), the wrapper's tile table against the built
-   library's, and per conv shape of the 512 px and 2048 px scales the
-   achieved TFLOP/s of forward and backward-data (profiler time);
+   to 262144 rows with and without a column window; ``block1_full`` and
+   ``block1_tail`` at ragged sizes, an image smaller than one tile and one
+   whose last block has a short run, with each cotangent alone and both;
+   the col2im; each launched twice and compared bit for bit), the wrapper's
+   tile table and its model of ``csrc/block1.cu`` against the built
+   library's, per conv shape of the 512 px and 2048 px scales the achieved
+   TFLOP/s of forward and backward-data (profiler time), and
+   ``block1_rates``: the block-1 forward, backward and col2im kernels apart
+   at 1024x1024 and 512x8192 with their TFLOP/s, ``block1_packed`` and the
+   plain col2im beside them, two launches bit for bit;
 4. segment forms — the fused pair against the pair of singles at the five
    two-conv segments of the 2048x2048 scale (effective width 2048, where
    the dispatch switches to singles): both times, and their agreement;
@@ -260,13 +267,14 @@ def _cuobjdump():
     return next((str(c) for c in candidates if c and Path(c).is_file()), None)
 
 
-# kernels of csrc/conv3x3.cu and csrc/gram.cu whose products must run on the
-# tensor cores (the Gram's reduce pass only adds partials)
-TENSOR_CORE_KERNELS = ("conv3x3_kernel", "gram_partial_kernel", "gram_fs_kernel")
+# kernels of csrc/conv3x3.cu, csrc/gram.cu and csrc/block1.cu whose products
+# must run on the tensor cores (the Grams' reduce passes only add partials)
+TENSOR_CORE_KERNELS = ("conv3x3_kernel", "gram_partial_kernel", "gram_fs_kernel",
+                       "block1_fwd_kernel", "block1_bwd_kernel")
 
 
 def tensor_core_report(lib_path):
-    """Per conv and Gram kernel of the built library: instantiations, their
+    """Per conv, Gram and block-1 kernel of the built library: instantiations, their
     ``HMMA`` / ``wgmma`` ops and the local-memory loads and stores
     (register spills) between the first and the last of them, from
     ``cuobjdump --dump-sass``. Returns (report, names of product kernels
@@ -293,7 +301,7 @@ def tensor_core_report(lib_path):
     report = {}
     for name, ops in funcs.items():
         kernel = next((k for k in TENSOR_CORE_KERNELS + ("gram_reduce_kernel",)
-                       if k in name and "block1" not in name), None)
+                       if k in name and ("block1" in k) == ("block1" in name)), None)
         if kernel is None:
             continue
         mma = [i for i, op in enumerate(ops) if op.startswith("HMMA") or "GMMA" in op]
@@ -311,6 +319,33 @@ def tensor_core_report(lib_path):
     return report, missing
 
 
+def ptxas_by_kernel(log_text, key):
+    """Registers and spill bytes of every kernel whose mangled name holds
+    ``key``, from the compilers' ``-Xptxas -v`` report: {name<template
+    arguments>: {"registers": n, "spill_stores": b, "spill_loads": b}}."""
+    import re
+
+    out, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            cur = None
+            if key in name:
+                kernel = re.search(r"\d+(" + key + r"\w*?_kernel)", name)
+                args = re.findall(r"L[ib](\d+)E", name)
+                cur = out.setdefault((kernel.group(1) if kernel else name)
+                                     + "<" + ",".join(args) + ">", {})
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
 def edge_cases(torch):
     """The launchers of the tensor-core kernels at the edge cases of
     ``ops/kernels/selfcheck.py``, each launched twice; fails on any error
@@ -322,6 +357,8 @@ def edge_cases(torch):
     dev = torch.device("cuda")
     if not selfcheck.tile_table_matches(_build.library()):
         raise AssertionError("the wrapper's conv tile table is not the built library's")
+    if not selfcheck.block1_model_matches(_build.library()):
+        raise AssertionError("the wrapper's model of csrc/block1.cu is not the built library's")
     worst, bad, unequal = {}, [], []
     names = selfcheck.all_cases()
     for name in names:
@@ -339,7 +376,7 @@ def edge_cases(torch):
         if not res["run_to_run_equal"]:
             unequal.append(name)
     emit({"phase": "kernel", "kernel": "edge_cases", "cases": len(names), "worst": worst,
-          "failed": [n for n, _ in bad], "run_to_run_unequal": unequal, "tile_table": "matches"})
+          "failed": [n for n, _ in bad], "run_to_run_unequal": unequal, "tile_table": "matches", "block1_model": "matches"})
     if bad or unequal:
         raise AssertionError(f"edge cases failed: {bad[:5]}; not bit-equal run to run: {unequal[:5]}")
 
@@ -385,6 +422,88 @@ def conv_rates(torch):
               "fwd_ms_13_launches": sum(r["fwd_ms"] * (3 if "-4" in r["conv"] else 1) for r in rows),
               "bwd_ms_13_launches": sum(r["bwd_ms"] * (3 if "-4" in r["conv"] else 1) for r in rows)})
         torch.cuda.empty_cache()
+
+
+def block1_rates(torch, params):
+    """The one-pass block-1 kernels at 1024x1024 and 512x8192: device ms of
+    the forward kernel, the backward kernel and ``block1_full``'s col2im
+    (profiler, by kernel name), the achieved TFLOP/s of each against the
+    operations the function needs (conv1_2's nine taps and the Gram or its
+    term 64 deep, conv1_1 and its transpose 27 deep), ``block1_packed``'s
+    fwd+bwd beside them, the plain col2im (nine slice-adds) beside the kernel,
+    and two launches of each compared bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from style_transfer_tpu_torch.ops.kernels import _launch
+    from style_transfer_tpu_torch.ops.kernels import block1 as B1
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ws = []
+    for n in ("conv1_1", "conv1_2"):
+        k = params[n]["kernel"].to(dev)
+        ws += [k, 0.1 * torch.randn(k.shape[3], generator=gen, device=dev)]
+
+    def by_kernel(fn, reps=5):
+        fn()
+        for _ in range(3):  # a trace now and then comes back without device events
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            by = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    key = next((k for k in ("block1_fwd_kernel", "block1_bwd_kernel",
+                                            "block1_col2im_kernel", "block1_gram_reduce_kernel")
+                                if k in e.name), "other")
+                    by[key] = by.get(key, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+            if by:
+                return by
+        raise RuntimeError("the profiler recorded no device time on the card in three traces")
+
+    rows = []
+    for h, w in [(1024, 1024), (512, 8192)]:
+        x = torch.randn(1, h, w, 3, generator=gen, device=dev).to(bf16)
+        r1 = torch.relu(torch.randn(1, h, w, 64, generator=gen, device=dev)).to(bf16)
+        cts = [torch.randn(1, h // 2, w // 2, 64, generator=gen, device=dev).to(bf16),
+               torch.randn(64, 64, generator=gen, device=dev) * (h * w / 64)]
+
+        def run(fn, inp, weights):
+            xr = inp.detach().requires_grad_(True)
+            outs = fn(xr, *weights)
+            (gx,) = torch.autograd.grad(outs, xr, grad_outputs=cts)
+            return list(outs) + [gx]
+
+        conv2 = 2.0 * h * w * 64 * (576 + 64)  # nine taps and the Gram (term), each way
+        conv1 = 2.0 * h * w * 64 * 27
+        row = {"size": [h, w]}
+        for name, fn, inp, weights, extra in [("block1_tail", B1.block1_tail, r1, ws[2:], 0.0),
+                                              ("block1_full", B1.block1_full, x, ws, conv1)]:
+            a, b = run(fn, inp, weights), run(fn, inp, weights)
+            torch.cuda.synchronize()
+            by = by_kernel(lambda: run(fn, inp, weights))
+            fwd, bwd = by["block1_fwd_kernel"], by["block1_bwd_kernel"]
+            row[name] = {"ms": sum(by.values()), "ms_by_kernel": by,
+                         "fwd_tflops": (conv2 + extra) / fwd / 1e9,
+                         "bwd_tflops": (conv2 + extra) / bwd / 1e9,
+                         "col2im_share": by.get("block1_col2im_kernel", 0.0) / sum(by.values()),
+                         "run_to_run_equal": all(torch.equal(u, v) for u, v in zip(a, b))}
+            del a, b
+        packed = by_kernel(lambda: run(B1.block1_packed, x, ws))
+        row["block1_packed"] = {"ms": sum(packed.values()),
+                                "tflops": 2 * (conv2 + conv1) / sum(packed.values()) / 1e9}
+        dpt = torch.randn(9, h, w, 3, generator=gen, device=dev).to(bf16)
+        row["col2im_kernel_ms"] = _device_ms(torch, lambda: _launch.block1_col2im(dpt))
+        row["col2im_plain_ms"] = _device_ms(torch, lambda: B1._col2im3(dpt).to(bf16))
+        emit({"phase": "kernel", "kernel": "block1_rates", **row})
+        rows.append(row)
+        if not (row["block1_tail"]["run_to_run_equal"] and row["block1_full"]["run_to_run_equal"]):
+            raise AssertionError(f"block 1 at {h}x{w} is not bit-equal from launch to launch")
+        del x, r1, cts, dpt
+        torch.cuda.empty_cache()
+    return rows
 
 
 def kernel_checks(torch, params):
@@ -703,6 +822,7 @@ def kernel_checks(torch, params):
         raise AssertionError(f"the W-sliced single disagrees with the unsliced one: {errors}")
     edge_cases(torch)
     conv_rates(torch)
+    block1_rates(torch, params)
     return summary
 
 
@@ -1213,6 +1333,7 @@ def main(argv=None) -> int:
     tensor_cores, missing = tensor_core_report(_build.library_path())
     emit({"phase": "build", "seconds": seconds,
           "tensor_cores": tensor_cores if tensor_cores is not None else "cuobjdump not found or failed",
+          "block1_ptxas": ptxas_by_kernel(log.read_text(), "block1") if log.is_file() else {},
           "ptxas": report})
     if missing:
         raise AssertionError(f"no tensor-core op in the built kernels: {missing}")

@@ -14,8 +14,9 @@
 //   gram: M = H*W rows < 2^31, at most 65535 row chunks (gridDim.y; the
 //     wrapper asks for a few hundred); gram_fs: M < 2^31 rows.
 //   tv: H*W*C elements in size_t, one row W*C < 2^31.
-//   block1 (fwd, bwd): H <= 8 * 65535 rows (gridDim.y of the backward's
-//     tiles), W < 2^31, tiles H/8 * W/16 < 2^31.
+//   block1 (fwd, bwd, col2im): persistent blocks walk the 16x16-pixel tiles,
+//     so no grid dimension limits H or W; tiles H/16 * W/16 < 2^31 and
+//     3 * W < 2^31 (the image row in elements).
 //   epilogue (sse_diff): the element count arrives as long long.
 // The largest tensors of a 512x8192 panorama (block 1: 512*8192*64 = 268 M
 // elements; Gram rows M = 4.19 M) sit far inside; chip_smoke.py runs block 1
@@ -102,6 +103,13 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   const int bytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+
+// The same for 4 bytes (sources that are only 4-byte aligned).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  const int bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(bytes));
 }
 

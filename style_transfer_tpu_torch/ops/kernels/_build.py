@@ -51,6 +51,8 @@ _SIGNATURES = {
     "st_block1_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "st_block1_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "st_block1_partials": [_I, _I],
+    "st_block1_info": [ctypes.POINTER(ctypes.c_int)],
+    "st_block1_col2im": [_P, _P, _I, _I, _P],
 }
 
 

@@ -299,18 +299,64 @@ def sse_diff(f: torch.Tensor, t: torch.Tensor, *, count: LaunchCount):
 
 _B1_C = 64  # channels of VGG block 1, fixed in csrc/block1.cu
 
+#: Output pixels per tile of ``csrc/block1.cu`` (rows, columns) and its
+#: threads per block; at most :data:`SM_COUNT` persistent blocks walk the tiles.
+BLOCK1_TILE = (16, 16)
+BLOCK1_THREADS = 256
+#: bf16 elements of a padded shared-memory row (64 channels + 16 bytes).
+BLOCK1_ROW = _B1_C + 8
+#: Rows of the conv1_1 taps as the kernels read them (27 padded to 32).
+BLOCK1_K1_ROWS = 32
+
+
+def block1_tiles(h: int, w: int) -> int:
+    """16x16-pixel tiles of an (h, w) image, ragged edges included."""
+    th, tw = BLOCK1_TILE
+    return -(-h // th) * -(-w // tw)
+
+
+def block1_tiles_per_block(h: int, w: int) -> int:
+    """Tiles that one persistent block of ``csrc/block1.cu`` walks."""
+    return -(-block1_tiles(h, w) // SM_COUNT)
+
+
+def block1_blocks(h: int, w: int) -> int:
+    """Blocks of a block-1 launch, which is also the number of (64, 64) Gram
+    partials of its forward: at most one per SM, the last with a short run."""
+    return -(-block1_tiles(h, w) // block1_tiles_per_block(h, w))
+
+
+def block1_smem(full: bool, backward: bool) -> int:
+    """Dynamic shared memory of a block of ``csrc/block1.cu``, in bytes.
+    Rows are 144 bytes (:data:`BLOCK1_ROW` bf16). Always resident: the nine
+    conv1_2 taps (9 x 64 rows). Forward, tail: two haloed 18x18-pixel r1
+    tiles. Forward, full: one r1 tile, the 336 patch rows of 80 bytes, the
+    32 rows of conv1_1 taps, the 20-row image tile of 128 bytes a row and
+    the fp32 bias. Backward: S (64 rows), two haloed cotangent tiles, the
+    256 own pixels of r1, and for full the conv1_1 taps."""
+    th, tw = BLOCK1_TILE
+    row = BLOCK1_ROW * 2
+    taps, tile = 9 * _B1_C * row, (th + 2) * (tw + 2) * row
+    k1 = BLOCK1_K1_ROWS * row
+    if backward:
+        return taps + _B1_C * row + 2 * tile + th * tw * row + (k1 if full else 0)
+    if not full:
+        return taps + 2 * tile
+    patches = -(-(th + 2) * (tw + 2) // 16) * 16 * (BLOCK1_K1_ROWS + 8) * 2
+    return taps + tile + patches + k1 + (th + 4) * 128 + _B1_C * 4
+
 
 def block1_fwd(
     src: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor, *, count: LaunchCount,
     k1: Optional[torch.Tensor] = None, b1: Optional[torch.Tensor] = None,
 ):
     """Block 1 forward in one launch (plus the Gram's reduce pass). With
-    ``k1`` (27, 64) bf16 and ``b1`` (64,) fp32, ``src`` is the (H, W, 3) bf16
-    preprocessed image (``block1_full``) and r1 = relu(conv1_1) is written;
-    without them ``src`` is r1 (H, W, 64) bf16 itself (``block1_tail``).
-    ``k2`` (3, 3, 64, 64) bf16, ``b2`` (64,) fp32. Returns ``(pool1 (H/2, W/2,
-    64) bf16, unnormalized Gram of r1 (64, 64) fp32, r1, int8 mask (H, W, 64)
-    of conv1_2's pre-activation > 0)``."""
+    ``k1`` (32, 64) bf16 (``_weights.conv1_taps``) and ``b1`` (64,) fp32,
+    ``src`` is the (H, W, 3) bf16 preprocessed image (``block1_full``) and
+    r1 = relu(conv1_1) is written; without them ``src`` is r1 (H, W, 64) bf16
+    itself (``block1_tail``). ``k2`` (3, 3, 64, 64) bf16, ``b2`` (64,) fp32.
+    Returns ``(pool1 (H/2, W/2, 64) bf16, unnormalized Gram of r1 (64, 64)
+    fp32, r1, int8 mask (H, W, 64) of conv1_2's pre-activation > 0)``."""
     full = k1 is not None
     h, w, cin = src.shape
     _require(src, "src", torch.bfloat16, (h, w, 3 if full else _B1_C))
@@ -319,7 +365,7 @@ def block1_fwd(
     _require(k2, "k2", torch.bfloat16, (3, 3, _B1_C, _B1_C))
     _require(b2, "b2", torch.float32, (_B1_C,))
     if full:
-        _require(k1, "k1", torch.bfloat16, (27, _B1_C))
+        _require(k1, "k1", torch.bfloat16, (BLOCK1_K1_ROWS, _B1_C))
         _require(b1, "b1", torch.float32, (_B1_C,))
     dev = src.device
     r1 = torch.empty((h, w, _B1_C), dtype=torch.bfloat16, device=dev) if full else src
@@ -345,8 +391,9 @@ def block1_bwd(
     """Block 1 backward in one launch, from the pooled cotangent (H/2, W/2, 64)
     bf16, the forward's int8 mask and r1, ``s`` = (dG + dG^T)/(H*W) as (64, 64)
     bf16 and ``k2t`` from :func:`taps_transposed`. Without ``k1``: d_r1
-    (H, W, 64) bf16 (``block1_tail``). With ``k1`` (27, 64) bf16: the patch
-    cotangents of conv1_1, tap-major (9, H, W, 3) bf16 (``block1_full``)."""
+    (H, W, 64) bf16 (``block1_tail``). With ``k1`` (32, 64) bf16, as in the
+    forward: the patch cotangents of conv1_1, tap-major (9, H, W, 3) bf16
+    (``block1_full``), for :func:`block1_col2im`."""
     h, w, _ = r1.shape
     _require(r1, "r1", torch.bfloat16, (h, w, _B1_C))
     _require(mask, "mask", torch.int8, (h, w, _B1_C))
@@ -354,7 +401,7 @@ def block1_bwd(
     _require(s, "s", torch.bfloat16, (_B1_C, _B1_C))
     _require(k2t, "k2t", torch.bfloat16, (3, 3, _B1_C, _B1_C))
     if k1 is not None:
-        _require(k1, "k1", torch.bfloat16, (27, _B1_C))
+        _require(k1, "k1", torch.bfloat16, (BLOCK1_K1_ROWS, _B1_C))
     shape = (h, w, _B1_C) if k1 is None else (9, h, w, 3)
     out = torch.empty(shape, dtype=torch.bfloat16, device=r1.device)
     lib = library()
@@ -362,4 +409,17 @@ def block1_bwd(
                             _ptr(out), h, w, _stream())
     _check_launch(lib, err, "block1_bwd")
     count.n += 1
+    return out
+
+
+def block1_col2im(dpt: torch.Tensor) -> torch.Tensor:
+    """Tap-major (9, H, W, 3) bf16 patch cotangents -> the (H, W, 3) bf16
+    image cotangent: each tap gathered back shifted, summed in fp32 in tap
+    order and rounded once. A small pass that belongs to ``block1_full``'s
+    backward and is not counted as a launch of its own."""
+    _, h, w, _ = dpt.shape
+    _require(dpt, "dpt", torch.bfloat16, (9, h, w, 3))
+    out = torch.empty((h, w, 3), dtype=torch.bfloat16, device=dpt.device)
+    lib = library()
+    _check_launch(lib, lib.st_block1_col2im(_ptr(dpt), _ptr(out), h, w, _stream()), "block1_col2im")
     return out

@@ -12,7 +12,8 @@ strides, dtype and device, and each entry keeps its source tensor alive, so
 the address cannot be reused by another tensor while the entry lives. An
 in-place update bumps ``_version`` and yields a new preparation. The cache
 holds at most :data:`MAX_ENTRIES` entries (least recently used out first):
-VGG-19 up to conv5_1 needs 13 taps in two forms and 13 biases.
+VGG-19 up to conv5_1 needs 13 taps in two forms and 13 biases; the one-pass
+block-1 kernels add conv1_1's padded (32, 64) taps and two fp32 biases.
 """
 
 from __future__ import annotations
@@ -42,7 +43,24 @@ def transpose_taps(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0, 1).transpose(2, 3).to(torch.bfloat16).contiguous()
 
 
-_FORMS = {"bf16": as_bf16, "taps_t": transpose_taps}
+def pad_conv1_taps(k1: torch.Tensor) -> torch.Tensor:
+    """(3, 3, 3, 64) HWIO taps of conv1_1 -> the (32, 64) bf16 operand of
+    ``csrc/block1.cu``: row ``(dy * 3 + dx) * 3 + ci`` holds that tap's 64
+    output channels, rows 27..31 are zero (the contraction is padded to two
+    k16 steps). The forward reads it as [k][n]; the backward's 27-wide
+    product reads the same bytes as [n][k]."""
+    out = torch.zeros((32, k1.shape[3]), dtype=torch.bfloat16, device=k1.device)
+    out[:27] = k1.reshape(27, k1.shape[3]).to(torch.bfloat16)
+    return out
+
+
+def as_fp32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous fp32 tensor (``t`` itself if it is one)."""
+    return t.to(torch.float32).contiguous()
+
+
+_FORMS = {"bf16": as_bf16, "taps_t": transpose_taps, "conv1_taps": pad_conv1_taps,
+          "fp32": as_fp32}
 
 
 def _prepared(t: torch.Tensor, form: str) -> torch.Tensor:
@@ -69,6 +87,16 @@ def bf16(t: torch.Tensor) -> torch.Tensor:
 def taps_transposed(w: torch.Tensor) -> torch.Tensor:
     """Cached :func:`transpose_taps` of a (3, 3, Cin, Cout) weight tensor."""
     return _prepared(w, "taps_t")
+
+
+def conv1_taps(k1: torch.Tensor) -> torch.Tensor:
+    """Cached :func:`pad_conv1_taps` of conv1_1's (3, 3, 3, 64) weight tensor."""
+    return _prepared(k1, "conv1_taps")
+
+
+def fp32(t: torch.Tensor) -> torch.Tensor:
+    """Cached :func:`as_fp32` of a bias (the block-1 kernels add it in fp32)."""
+    return _prepared(t, "fp32")
 
 
 def clear() -> None:

@@ -10,11 +10,13 @@ plus the conv1_1 Gram, with a VJP to the block's input. Three entry points:
   them.
 - :func:`block1_full` — counterpart of ``ops/pallas/block1.py::block1_full``,
   the opt-in ``fused_block1`` path. Same contract as ``block1_packed``, one
-  pass from the image: ``csrc/block1.cu`` computes conv1_1 as a 27-deep
-  contraction into shared memory, writes r1 once as the residual, runs
-  conv1_2 + ReLU + pool and the Gram from the tile on chip, and its backward
-  ends in the 27-wide ``dpre1 @ k1f^T``; the col2im that scatters the patch
-  cotangents onto the image stays in torch, as the reference keeps it in XLA.
+  pass from the image: ``csrc/block1.cu`` builds the 27-wide patches of a
+  tile in shared memory, computes conv1_1 on the tensor cores into the r1
+  tile there, writes r1 once as the residual, runs conv1_2 + ReLU + pool and
+  the Gram from the tile on chip, and its backward ends in the 27-wide
+  ``dpre1 @ k1f^T``; the col2im that gathers the patch cotangents onto the
+  image is a small kernel of the same source (the reference keeps it in
+  XLA), with :func:`_col2im3` as its plain version.
 - :func:`block1_tail` — counterpart of ``ops/pallas/block1.py::block1_tail``:
   the same from a stored ``r1 = relu(conv1_1)``, ``(r1, k2, b2) -> (pool1,
   gram)``; its backward returns ``d_r1`` (transposed conv1_2 of the gated
@@ -25,8 +27,20 @@ gram (64, 64) fp32 / (H*W))`` for the preprocessed image ``x`` (1, H, W, 3),
 H and W even; the backward writes the image cotangent only (the VGG weights
 are frozen: their gradients are ``None``). ``block1_full`` and
 ``block1_tail`` make one forward and one backward kernel launch per call
-(the Gram's fixed-order reduce pass aside) and take bf16 on the card; on a
-CPU tensor every entry point runs its plain version under autograd.
+(the Gram's fixed-order reduce pass and ``block1_full``'s col2im aside) and
+take bf16 on the card; on a CPU tensor every entry point runs its plain
+version under autograd.
+
+The kernels are bf16 tensor-core kernels (``mma.sync`` from ``ldmatrix``):
+one persistent block per SM walks a run of 16x16-pixel tiles with all nine
+conv1_2 taps resident in shared memory, the next tile's loads in flight
+behind the current tile's MMAs, and the Gram kept in registers across the
+run; what bounds them (operations and bytes at once: about 0.18 ms each at
+1024x1024) and what the design does about it stands in the source's header.
+The weights reach them in three prepared forms, each made once per tensor
+(``_weights``): bf16 taps, the flipped transposed taps, and conv1_1's taps
+as (32, 64) with rows 27..31 zero; the biases as fp32. Sizes: any even H and
+W; tiles ``H/16 * W/16 < 2^31`` and ``3 W < 2^31``.
 
 Left out from the TPU kernels: the W-pair lane packing and the packed im2col
 (``block1_packed.py``), the XLA-side ``_im2col3``, the row padding to 16
@@ -41,7 +55,7 @@ import torch
 
 from style_transfer_tpu_torch.models import vgg
 from style_transfer_tpu_torch.ops import losses
-from style_transfer_tpu_torch.ops.kernels import _launch
+from style_transfer_tpu_torch.ops.kernels import _launch, _weights
 from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
 from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
 
@@ -98,9 +112,10 @@ def _pooled_cotangent(d_pool, r1):
 
 
 def _col2im3(dpt):
-    """Tap-major (9, H, W, 3) patch cotangents -> (H, W, 3) image cotangent:
-    each tap scatters back shifted (the reference's ``_col2im3``), summed in
-    fp32."""
+    """Tap-major (9, H, W, 3) patch cotangents -> (H, W, 3) fp32 image
+    cotangent: each tap scatters back shifted (the reference's ``_col2im3``),
+    summed in fp32 in tap order. The plain version of
+    ``_launch.block1_col2im``."""
     _, h, w, _ = dpt.shape
     dx = torch.zeros((h + 2, w + 2, 3), dtype=torch.float32, device=dpt.device)
     for t in range(9):
@@ -117,24 +132,22 @@ class FullFunction(torch.autograd.Function):
         if x.dtype != torch.bfloat16:
             raise ValueError(f"the block-1 kernel takes bf16 input, got {x.dtype}")
         _, h, w, _ = x.shape
-        bf, f32 = torch.bfloat16, torch.float32
-        k1f = k1.reshape(27, C).to(bf).contiguous()
         pool, gram, r1, mask = _launch.block1_fwd(
-            x[0].contiguous(), k2.to(bf).contiguous(), b2.to(f32).contiguous(),
-            k1=k1f, b1=b1.to(f32).contiguous(), count=full_launches,
+            x[0].contiguous(), _launch.taps(k2), _weights.fp32(b2),
+            k1=_weights.conv1_taps(k1), b1=_weights.fp32(b1), count=full_launches,
         )
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(r1, mask, k1f, k2)
+        ctx.save_for_backward(r1, mask, k1, k2)
         return pool[None], gram / float(h * w)
 
     @staticmethod
     def backward(ctx, d_pool, d_gram):
-        r1, mask, k1f, k2 = ctx.saved_tensors
+        r1, mask, k1, k2 = ctx.saved_tensors
         h, w, _ = r1.shape
         dpt = _launch.block1_bwd(_pooled_cotangent(d_pool, r1), mask, r1,
                                  _sym(d_gram, h * w, r1), _launch.taps_transposed(k2),
-                                 k1=k1f, count=full_launches)
-        return _col2im3(dpt).to(torch.bfloat16)[None], None, None, None, None
+                                 k1=_weights.conv1_taps(k1), count=full_launches)
+        return _launch.block1_col2im(dpt)[None], None, None, None, None
 
 
 class TailFunction(torch.autograd.Function):
@@ -147,8 +160,7 @@ class TailFunction(torch.autograd.Function):
         _, h, w, _ = r1.shape
         r = r1[0].contiguous()
         pool, gram, _, mask = _launch.block1_fwd(
-            r, k2.to(torch.bfloat16).contiguous(), b2.to(torch.float32).contiguous(),
-            count=tail_launches,
+            r, _launch.taps(k2), _weights.fp32(b2), count=tail_launches,
         )
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(r, mask, k2)

@@ -10,6 +10,13 @@ PyTorch in bf16, and in fp32 on the same bf16-valued inputs (TF32 off); the
 caller holds the errors to ``tolerances.within``. A case also launches its
 kernel a second time and reports whether the outputs are bit-equal.
 
+The one-pass block-1 kernels of ``csrc/block1.cu`` run through their
+wrappers (``block1.block1_full``, ``block1_tail``) under autograd at the same
+ragged sizes (10x6 is smaller than one 16x16 tile) and at 210x300, whose 266
+tiles leave the last persistent block a short run, with only the pooled
+cotangent, only the Gram's, and both; and ``block1_col2im`` against its plain
+version, bit for bit.
+
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` run the same lists. Needs
 a CUDA device; nothing here runs on the CPU.
 """
@@ -23,7 +30,9 @@ import torch.nn.functional as F
 
 from style_transfer_tpu_torch.ops.kernels import _launch
 from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
-from style_transfer_tpu_torch.ops.kernels.tolerances import TOL_ACT, TOL_GRAM
+from style_transfer_tpu_torch.ops.kernels.tolerances import TOL_ACT, TOL_DX, TOL_GRAM
+
+C1 = 64  # channels of VGG block 1
 
 SIZES = ((10, 6), (26, 12), (62, 90), (128, 136))
 FWD_CHANNELS = ((3, 64), (64, 64), (128, 256), (512, 512))
@@ -33,6 +42,8 @@ BWD_MODES = ("bare", "unpool", "in_mask", "unpool_in_mask", "pre_add", "pre_add_
              "pre_gate", "pre_add_pre_gate_unpool", "add_gate")
 GRAM_ROWS = ((60, 6, 1, 4), (4096, 64, 8, 56), (65536, 256, 8, 248), (262144, 512, 8, 504))
 GRAM_CHANNELS = (64, 128, 256, 512)
+BLOCK1_SIZES = SIZES + ((210, 300),)
+BLOCK1_COTANGENTS = ("pool", "gram", "both")
 
 
 def conv_fwd_cases():
@@ -193,6 +204,64 @@ def run_gram(name: str, dev) -> dict:
             "launches": count.n}
 
 
+def block1_cases():
+    cases = [f"block1{kind}-{ct}-{h}x{w}" for kind in ("full", "tail") for ct in BLOCK1_COTANGENTS
+             for (h, w) in BLOCK1_SIZES]
+    return cases + [f"col2im-{h}x{w}" for (h, w) in BLOCK1_SIZES]
+
+
+def run_block1(name: str, dev) -> dict:
+    """``block1_full`` or ``block1_tail`` with the named cotangents: pool1,
+    the Gram and the input gradient, two launches bit for bit."""
+    from style_transfer_tpu_torch.ops.kernels import block1 as B1
+
+    kind, which, size = name.split("-")
+    h, w = (int(v) for v in size.split("x"))
+    full = kind == "block1full"
+    gen, bf = _gen(name, dev), torch.bfloat16
+    vals = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(bf).float()  # noqa: E731
+    x = vals(1, h, w, 3) if full else torch.relu(vals(1, h, w, C1))
+    ws = []
+    for cin in ((3, C1) if full else (C1,)):
+        ws += [vals(3, 3, cin, C1) * (2.0 / (9 * cin)) ** 0.5, 0.1 * vals(C1)]
+    ws = [t.to(bf).float() for t in ws]
+    cts = {"pool": vals(1, h // 2, w // 2, C1), "gram": vals(C1, C1) * (h * w / C1)}
+    used = ("pool", "gram") if which == "both" else (which,)
+    kernel, plain = (B1.block1_full, B1.block1_plain) if full else (B1.block1_tail, B1.block1_tail_plain)
+    count = B1.full_launches if full else B1.tail_launches
+
+    def run(fn, dt):
+        xr = x.to(dt).requires_grad_(True)
+        outs = dict(zip(("pool", "gram"), fn(xr, *ws)))
+        (dx,) = torch.autograd.grad([outs[k] for k in used], xr,
+                                    grad_outputs=[cts[k].to(outs[k].dtype) for k in used])
+        return [outs["pool"].detach(), outs["gram"].detach(), dx]
+
+    before = count.n
+    first = run(kernel, bf)
+    launches = count.n - before  # one forward and one backward
+    second = run(kernel, bf)
+    p16, ref = run(plain, bf), run(plain, torch.float32)
+    errors = [_entry(what, k, p, r, tol) for what, k, p, r, tol in
+              zip(("pool", "gram", "dx"), first, p16, ref, (TOL_ACT, TOL_GRAM, TOL_DX))]
+    return {"case": name, "errors": errors, "launches": launches,
+            "run_to_run_equal": all(torch.equal(a, b) for a, b in zip(first, second))}
+
+
+def run_col2im(name: str, dev) -> dict:
+    """``block1_col2im`` against ``block1._col2im3``: the same fp32 sums in
+    the same order, so the same bits."""
+    from style_transfer_tpu_torch.ops.kernels import block1 as B1
+
+    h, w = (int(v) for v in name.split("-")[1].split("x"))
+    dpt = torch.randn(9, h, w, 3, generator=_gen(name, dev), device=dev).to(torch.bfloat16)
+    outs = [_launch.block1_col2im(dpt) for _ in range(2)]
+    plain = B1._col2im3(dpt)
+    exact = torch.equal(outs[0], plain.to(torch.bfloat16))
+    return {"case": name, "errors": [_entry("dx", outs[0], plain.to(torch.bfloat16), plain, TOL_ACT)],
+            "run_to_run_equal": torch.equal(outs[0], outs[1]) and exact, "launches": 2}
+
+
 def run_case(name: str, dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -200,11 +269,32 @@ def run_case(name: str, dev) -> dict:
         return run_conv_fwd(name, dev)
     if name.startswith("bwd-"):
         return run_conv_bwd(name, dev)
+    if name.startswith("block1"):
+        return run_block1(name, dev)
+    if name.startswith("col2im-"):
+        return run_col2im(name, dev)
     return run_gram(name, dev)
 
 
 def all_cases():
-    return conv_fwd_cases() + conv_bwd_cases() + gram_cases()
+    return conv_fwd_cases() + conv_bwd_cases() + gram_cases() + block1_cases()
+
+
+def block1_model_matches(lib) -> bool:
+    """Whether the wrapper's model of ``csrc/block1.cu`` (tile, threads,
+    blocks, shared memory of its four kernels, Gram partials per image size)
+    is the built library's."""
+    import ctypes
+
+    got = (ctypes.c_int * 8)()
+    if lib.st_block1_info(got):
+        return False
+    want = [*_launch.BLOCK1_TILE, _launch.BLOCK1_THREADS, _launch.SM_COUNT,
+            _launch.block1_smem(False, False), _launch.block1_smem(True, False),
+            _launch.block1_smem(False, True), _launch.block1_smem(True, True)]
+    sizes = BLOCK1_SIZES + ((1024, 1024), (512, 8192), (2048, 2048))
+    return list(got) == want and all(
+        lib.st_block1_partials(h, w) == _launch.block1_blocks(h, w) for h, w in sizes)
 
 
 def tile_table_matches(lib) -> bool:

@@ -12,7 +12,8 @@ VGG layers (Grams need multiples of 64), and spatial sizes off the kernels'
 tiles (8x8, 8x16 and 16x16 pixels) so the ragged tile edges run (the
 ``_narrow`` block-1 cases are 26x12: narrower than one tile, and a ragged
 last tile row); ``ops/kernels/selfcheck.py`` adds the launchers of the
-tensor-core conv and Gram kernels one option at a time. The kernel runs in bf16 (TV in fp32) against
+tensor-core conv and Gram kernels one option at a time, and the one-pass
+block-1 kernels at ragged sizes with each cotangent alone. The kernel runs in bf16 (TV in fp32) against
 its plain version run in fp32 on the same bf16-valued inputs, under the
 limits of ``ops/kernels/tolerances.py`` that ``chip_smoke.py`` applies too:
 an absolute limit per output, and no less accurate than the plain version
@@ -187,7 +188,8 @@ def test_cuda_kernel_matches_plain_version(name, cuda_device):
 def test_cuda_tensor_core_kernel_edge_case(name, cuda_device):
     """The launchers of the tensor-core conv and Gram kernels, one option at
     a time, at sizes ragged against every tile and at conv1_1's channel
-    counts (``ops/kernels/selfcheck.py``): within the limits of
+    counts, and the one-pass block-1 kernels with each cotangent alone and
+    both (``ops/kernels/selfcheck.py``): within the limits of
     ``tolerances.py``, the ReLU mask wrong only within bf16 rounding of zero,
     and bit-equal from one launch to the next."""
     res = selfcheck.run_case(name, cuda_device)
@@ -206,6 +208,16 @@ def test_cuda_tile_table_is_the_built_librarys(cuda_device):
     from style_transfer_tpu_torch.ops.kernels import _build
 
     assert selfcheck.tile_table_matches(_build.library())
+
+
+@pytest.mark.cuda
+def test_cuda_block1_model_is_the_built_librarys(cuda_device):
+    """The wrapper's tile, grid, Gram-partial count and shared-memory model
+    of the one-pass block-1 kernels are those compiled into
+    ``csrc/block1.cu``."""
+    from style_transfer_tpu_torch.ops.kernels import _build
+
+    assert selfcheck.block1_model_matches(_build.library())
 
 
 @pytest.mark.cuda
