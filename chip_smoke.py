@@ -38,15 +38,26 @@ Phases, one JSON object per line on stdout:
    20 CUDA-event-timed calls (which also counts host launch gaps). Block 1
    (all three forms) and TV also run once at the 512x8192 panorama's full
    size, the largest tensors of the port (the index-width check of
-   ``csrc/common.cuh``). Then the edge cases of
+   ``csrc/common.cuh``). The three fused losses (``content_loss``,
+   ``style_loss``, ``tv_loss``) are timed on tensors already in their dtype;
+   the profiler counts the device launches of a call, which must be two (one
+   forward, one backward kernel, no PyTorch op between); the gradient must
+   have the bits of the plain backward and a second call the bits of the
+   first; beside ``bound_ms``
+   (the function as a whole) stands ``bound_two_pass_ms``, the bytes of the
+   least schedule of two separate passes that autograd allows (the cotangent
+   is unknown in the forward), and ``launch_pair_floor_ms``, what two empty
+   launches take. Then the edge cases of
    ``ops/kernels/selfcheck.py`` (the conv and Gram launchers one option at a
    time, at sizes ragged against every tile, K = 3 and N = 3, Grams of 60
    to 262144 rows with and without a column window; ``block1_full`` and
    ``block1_tail`` at ragged sizes, an image smaller than one tile and one
    whose last block has a short run, with each cotangent alone and both;
-   the col2im; each launched twice and compared bit for bit), the wrapper's
-   tile table and its model of ``csrc/block1.cu`` against the built
-   library's, per conv shape of the 512 px and 2048 px scales the achieved
+   the col2im; the losses from 1 to 12.6 M elements, TV from a single pixel
+   to 512x8192, with the cotangents 1, 0.7 and 0; each
+   launched twice and compared bit for bit), the wrapper's tile table and
+   its models of ``csrc/block1.cu`` and of the loss kernels' grids against
+   the built library's, per conv shape of the 512 px and 2048 px scales the achieved
    TFLOP/s of forward and backward-data (profiler time), and
    ``block1_rates``: the block-1 forward, backward and col2im kernels apart
    at 1024x1024 and 512x8192 with their TFLOP/s, ``block1_packed`` and the
@@ -76,7 +87,8 @@ Phases, one JSON object per line on stdout:
    with block 1 as ``block1_full`` and as conv1_1 + ``block1_tail``: each
    loss curve against the hook-free plain fp32 objective, every kernel of
    the arm launched, and the step time with each hook on and off (at
-   256x256 and 512x512 too for ``gram_matrix``'s dispatch);
+   256x256 and 512x512 too for ``gram_matrix``'s dispatch), and the device
+   launches of a step in each setting;
 10. profile — one optimizer step of the default chain at 256x256, 512x512,
    2048x2048 and 512x8192: wall time, device time by kernel (profiler) and
    peak device memory;
@@ -87,15 +99,19 @@ Phases, one JSON object per line on stdout:
 Each stylize phase and each arm of the objective phase sets every launch
 count to 0 just before it runs and reads them all just after. Then a
 ``{"kernels": [...]}`` summary line (eleven kernels, each with the launches
-of the phase whose path runs it, its error, its time, the plain version's,
-the library call's and its bound), the nvidia-smi line,
+of the phase whose path runs it, forward and backward kernels alike, its
+error, its time, the plain version's, the library call's and its bound, for
+the losses the two-pass bound too), the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed phase raises: the
 script exits nonzero and prints no ok line. Without a CUDA device it exits
 with code 2 before doing anything else.
 
-``--phases a,b`` runs only the named phases (after device and build) and
-``--steps N`` sets the optimizer steps per scale of the stylize phases, for
-comparing two trees in turns; the ``kernels`` line needs every phase.
+``--phases a,b`` runs only the named phases (after device and build),
+``--kernels a,b`` only the named kernels' cases of the kernel phase (``--phases
+kernel --kernels content_loss,style_loss,tv_loss``: the losses with their
+edge cases, a quarter of a minute after the build) and ``--steps N`` sets the
+optimizer steps per scale of the stylize phases, for comparing two trees in
+turns; the ``kernels`` line needs every phase and every kernel.
 """
 
 from __future__ import annotations
@@ -205,9 +221,10 @@ def _wall_ms(torch, fn, reps: int, warmup: int = 3):
     return times
 
 
-def _device_ms(torch, fn, reps: int = 5) -> float:
-    """Mean device time per call: the summed durations of the kernels (and
-    copies) the profiler saw on the card, without host launch gaps."""
+def _device_profile(torch, fn, reps: int = 5):
+    """``(ms, launches, names)`` per call of ``fn``: the summed durations of
+    the kernels (and copies) the profiler saw on the card, without host
+    launch gaps, how many there were, and their names."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -217,11 +234,16 @@ def _device_ms(torch, fn, reps: int = 5) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.time_range.elapsed_us() for e in events)
         if us > 0:
-            return us / reps / 1e3
+            return us / reps / 1e3, len(events) / reps, sorted({e.name for e in events})
     raise RuntimeError("the profiler recorded no device time on the card in three traces")
+
+
+def _device_ms(torch, fn, reps: int = 5) -> float:
+    """Mean device time per call (see :func:`_device_profile`)."""
+    return _device_profile(torch, fn, reps)[0]
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates, 700 W):
@@ -346,11 +368,17 @@ def ptxas_by_kernel(log_text, key):
     return out
 
 
-def edge_cases(torch):
-    """The launchers of the tensor-core kernels at the edge cases of
-    ``ops/kernels/selfcheck.py``, each launched twice; fails on any error
-    beyond ``tolerances.within``, any ReLU-mask slip beyond bf16 rounding of
-    zero, and any run-to-run difference."""
+# edge-case families of ``ops/kernels/selfcheck.py`` that ``--kernels`` can select
+EDGE_PREFIXES = {"content_loss": "sse-", "style_loss": "sse-", "tv_loss": "tv-"}
+
+
+def edge_cases(torch, only=()):
+    """The launchers of the tensor-core kernels and the fused losses at the
+    edge cases of ``ops/kernels/selfcheck.py``, each launched twice; fails on
+    any error beyond ``tolerances.within``, any ReLU-mask slip beyond bf16
+    rounding of zero, any run-to-run difference and any loss gradient that
+    has not the bits of its plain backward. ``only``: the cases of the named
+    loss kernels alone."""
     from style_transfer_tpu_torch.ops.kernels import _build, selfcheck
     from style_transfer_tpu_torch.ops.kernels.tolerances import within
 
@@ -359,8 +387,13 @@ def edge_cases(torch):
         raise AssertionError("the wrapper's conv tile table is not the built library's")
     if not selfcheck.block1_model_matches(_build.library()):
         raise AssertionError("the wrapper's model of csrc/block1.cu is not the built library's")
+    if not selfcheck.loss_model_matches(_build.library()):
+        raise AssertionError("the wrapper's model of the loss kernels' grids is not the built library's")
     worst, bad, unequal = {}, [], []
     names = selfcheck.all_cases()
+    if only:
+        names = [n for n in names
+                 if n.startswith(tuple(EDGE_PREFIXES[k] for k in only if k in EDGE_PREFIXES))]
     for name in names:
         res = selfcheck.run_case(name, dev)
         torch.cuda.synchronize()
@@ -373,12 +406,13 @@ def edge_cases(torch):
                 bad.append((name, e))
         if res.get("mask_slip", 0.0) > res.get("mask_slip_limit", 0.0):
             bad.append((name, {"mask_slip": res["mask_slip"], "limit": res["mask_slip_limit"]}))
-        if not res["run_to_run_equal"]:
+        if not (res["run_to_run_equal"] and res.get("backward_exact", True)):
             unequal.append(name)
     emit({"phase": "kernel", "kernel": "edge_cases", "cases": len(names), "worst": worst,
-          "failed": [n for n, _ in bad], "run_to_run_unequal": unequal, "tile_table": "matches", "block1_model": "matches"})
+          "failed": [n for n, _ in bad], "run_to_run_unequal": unequal, "tile_table": "matches", "block1_model": "matches", "loss_model": "matches"})
     if bad or unequal:
-        raise AssertionError(f"edge cases failed: {bad[:5]}; not bit-equal run to run: {unequal[:5]}")
+        raise AssertionError(f"edge cases failed: {bad[:5]}; not bit-equal run to run or to the "
+                             f"plain backward: {unequal[:5]}")
 
 
 # (pools before it, cin, cout) of the chain's convs
@@ -506,7 +540,7 @@ def block1_rates(torch, params):
     return rows
 
 
-def kernel_checks(torch, params):
+def kernel_checks(torch, params, only=()):
     """Phase 3: every kernel wrapper at the shapes its path gives it, in bf16
     (TV, the fp32 content loss and the style loss in fp32), against its plain
     version run in fp32 on the same bf16-valued inputs, weights and
@@ -518,8 +552,17 @@ def kernel_checks(torch, params):
     losses) it is timed too, forward and backward like the kernel, as a
     yardstick that the port never calls. Each case's bound (the
     least time the card could take) is computed from its tensors and its
-    operation count. Returns per-kernel summaries (errors of every case;
-    times and bounds of the cases on a path that the script drives)."""
+    operation count. The three losses are timed on tensors already in their
+    dtype (no cast of the harness inside the call): the profiler counts the
+    launches of a call, which must be two; the gradient must have the bits
+    of the plain backward and a second call the bits of the first; their
+    bound is given twice, for the function as a
+    whole and for the least schedule of two separate passes that autograd
+    allows. ``only`` restricts the phase to the named kernels' cases (and, of
+    the edge cases, to the losses'). Returns per-kernel summaries (errors of
+    every case; times and bounds of the cases on a path that the script
+    drives)."""
+
     import torch.nn.functional as F
 
     from style_transfer_tpu_torch.ops.kernels import _build, _launch
@@ -599,18 +642,21 @@ def kernel_checks(torch, params):
     cases = []
 
     def add(kernel, label, x, k_fn, p_fn, ws, cts, tols, *, flops, dtype=bf16, on_path=True,
-            kind="bf16", library=None, dx_tol=TOL_DX, cast_ws=False, extra=None, calls=None):
+            kind="bf16", library=None, dx_tol=TOL_DX, cast_ws=False, extra=None, calls=None,
+            loss=None):
         """One case: ``k_fn``/``p_fn`` (kernel wrapper, plain version) on x and
         ws, cotangents cts, per-output limits tols and the input gradient's
         dx_tol; ``on_path``: its times and bound go into the summary;
         ``flops``/``kind`` for the bound; ``library``: the yardstick call;
         ``cast_ws``: ws follow the run's dtype (a loss target); ``extra``:
         other wrappers timed on the same inputs; ``calls``: named calls timed
-        as they are."""
+        as they are; ``loss``: for a fused loss, (its plain backward ``(x, ws,
+        ct) -> gradient``, the passes over x of its least two-pass
+        schedule)."""
         cases.append(dict(kernel=kernel, label=label, x=x, k_fn=k_fn, p_fn=p_fn, ws=ws, cts=cts,
                           tols=tols, flops=flops, dtype=dtype, on_path=on_path, kind=kind,
                           library=library, dx_tol=dx_tol, cast_ws=cast_ws, extra=extra or {},
-                          calls=calls or {}))
+                          calls=calls or {}, loss=loss))
 
     b1_chain = ((3, 64), (64, 64))
     hw = 512 * 512
@@ -641,9 +687,15 @@ def kernel_checks(torch, params):
         (randn(512, 512) * (32 * 32 / 512),), (TOL_GRAM,),
         flops=_conv_flops(32, 32, (512, 512)) + _gram_flops(32 * 32, 512),
         library=conv_library(32, 32, (512, 512)))
+    # a loss under autograd is two passes: TV reads the image, then reads it
+    # again and writes the gradient (3 passes over x); the squared error
+    # reads both operands, then reads them (or their difference) again and
+    # writes the gradient (5)
+    tv_case = (lambda x, ws, ct: EP.tv_backward_plain(x, ct), 3)
+    sse_case = (lambda x, ws, ct: EP.sse_backward_plain(ct, x, ws[0]), 5)
     add("tv_loss", "1x512x512x3 fp32", rand(1, 512, 512, 3), EP.tv_loss, EP.tv_loss_plain,
         [], (torch.ones((), device=dev),), (TOL_TV,), flops=10.0 * 512 * 512 * 3,
-        dtype=torch.float32, kind="fp32", dx_tol=TOL_TV)
+        dtype=torch.float32, kind="fp32", dx_tol=TOL_TV, loss=tv_case)
 
     def single_plain(pool, gram):
         return lambda x, k, b: CS.conv_single_plain(x, k, b, pool=pool, gram=gram)
@@ -684,7 +736,7 @@ def kernel_checks(torch, params):
         on_path=False, flops=_conv_flops(512, 8192, *b1_chain) + _gram_flops(512 * 8192, 64))
     add("tv_loss", "1x512x8192x3 fp32 (index width)", rand(1, 512, 8192, 3), EP.tv_loss,
         EP.tv_loss_plain, [], (torch.ones((), device=dev),), (TOL_TV,), on_path=False,
-        flops=10.0 * 512 * 8192 * 3, dtype=torch.float32, kind="fp32", dx_tol=TOL_TV)
+        flops=10.0 * 512 * 8192 * 3, dtype=torch.float32, kind="fp32", dx_tol=TOL_TV, loss=tv_case)
 
     # ---- the opt-in path's kernels, at the 1024 px shapes of its phases
     one = (torch.ones((), device=dev),)
@@ -692,17 +744,18 @@ def kernel_checks(torch, params):
     f42, t42 = rand(1, 128, 128, 512), rand(1, 128, 128, 512)
     add("content_loss", "conv4_2 at 1024 px: 16384x512 bf16", f42,
         EP.content_loss, EP.content_loss_plain, [t42], one, (TOL_LOSS,),
-        flops=3.0 * n42, dx_tol=TOL_ACT, cast_ws=True, library=mse_library(f42, t42, bf16))
+        flops=3.0 * n42, dx_tol=TOL_ACT, cast_ws=True, library=mse_library(f42, t42, bf16),
+        loss=sse_case)
     f42, t42 = rand(1, 128, 128, 512), rand(1, 128, 128, 512)
     add("content_loss", "16384x512 fp32 input", f42,
         EP.content_loss, EP.content_loss_plain, [t42], one, (TOL_LOSS,),
         flops=3.0 * n42, dtype=torch.float32, kind="fp32", dx_tol=TOL_LOSS, on_path=False,
-        library=mse_library(f42, t42, torch.float32))
+        library=mse_library(f42, t42, torch.float32), loss=sse_case)
     for c in (64, 512):
         g, g_t = randn(c, c), randn(c, c)
         add("style_loss", f"{c}x{c} fp32 Grams", g, EP.style_loss, EP.style_loss_plain,
             [g_t], one, (TOL_LOSS,), flops=3.0 * c * c, dtype=torch.float32, kind="fp32",
-            dx_tol=TOL_LOSS, library=mse_library(g, g_t, torch.float32))
+            dx_tol=TOL_LOSS, library=mse_library(g, g_t, torch.float32), loss=sse_case)
 
     def gram_backward_products(x, c):
         """The two ways to the Gram's VJP product F S: the fp32 matmul that
@@ -742,8 +795,13 @@ def kernel_checks(torch, params):
             on_path=on_path, flops=_conv_flops(h, w, (64, 64)) + _gram_flops(h * w, 64),
             library=conv_library(h, w, (64, 64)))
 
+    # what two launches cost on the card with no work in them: the floor of a
+    # loss whose tensors are a few KB
+    launch_pair_floor_ms = _device_ms(torch, lambda: (_launch.noop(), _launch.noop()))
     summary = {}
     for case in cases:
+        if only and case["kernel"] not in only:
+            continue
         name, label, x, ws, cts = (case[k] for k in ("kernel", "label", "x", "ws", "cts"))
         k_fn, p_fn, dtype, tols = (case[k] for k in ("k_fn", "p_fn", "dtype", "tols"))
 
@@ -768,14 +826,40 @@ def kernel_checks(torch, params):
         nbytes = (_nbytes(*k_res, x.to(dtype), *([a.to(dtype) for a in ws] if case["cast_ws"] else ws))
                   + sum(_nbytes(c.to(o.dtype)) for c, o in zip(cts, k_res)))
         bound_ms, bound_by = _bound(nbytes, case["flops"], case["kind"])
+        loss_row = {}
+        if case["loss"]:
+            backward_plain, passes = case["loss"]
+            x_dt, ws_dt = x.to(dtype), [a.to(dtype) for a in ws]
+
+            def call(fn=k_fn):  # nothing of the harness between the tensors and the wrapper
+                xr = x_dt.detach().requires_grad_(True)
+                out = fn(xr, *ws_dt)
+                return out, torch.autograd.grad(out, xr, grad_outputs=cts[0])[0]
+
+            first, second = call(), call()
+            ms, launches_per_call, names = _device_profile(torch, call)
+            two_pass = passes * _nbytes(x_dt)
+            loss_row = {
+                "launches_per_call": launches_per_call, "device_kernels": names,
+                "ms_with_harness_casts": _device_ms(torch, lambda: run(k_fn, dtype)),
+                "plain_ms_with_harness_casts": _device_ms(torch, lambda: run(p_fn, dtype)),
+                "backward_bit_equal": torch.equal(first[1], backward_plain(x_dt, ws_dt, cts[0])),
+                "run_to_run_equal": all(torch.equal(a, b) for a, b in zip(first, second)),
+                "two_pass_bytes": two_pass,
+                "bound_two_pass_ms": _bound(two_pass, case["flops"], case["kind"])[0],
+                "launch_pair_floor_ms": launch_pair_floor_ms,
+            }
+            plain_ms = _device_ms(torch, lambda: call(p_fn))
+            del first, second
         del p_res, r_res
         t_k, t_p = [], []
         for _ in range(2):  # kernel, plain, kernel, plain: in turns on one card
             t_k += _wall_ms(torch, lambda: run(k_fn, dtype), reps=10)
             t_p += _wall_ms(torch, lambda: run(p_fn, dtype), reps=10)
         wall, plain_wall = statistics.median(t_k), statistics.median(t_p)
-        ms = _device_ms(torch, lambda: run(k_fn, dtype))
-        plain_ms = _device_ms(torch, lambda: run(p_fn, dtype))
+        if not case["loss"]:
+            ms = _device_ms(torch, lambda: run(k_fn, dtype))
+            plain_ms = _device_ms(torch, lambda: run(p_fn, dtype))
         library_ms = _device_ms(torch, case["library"]) if case["library"] else None
         extra_ms = {what + "_ms": _device_ms(torch, lambda: run(fn, dtype))
                     for what, fn in case["extra"].items()}
@@ -783,13 +867,19 @@ def kernel_checks(torch, params):
         emit({"phase": "kernel", "kernel": name, "case": label,
               "shape": list(x.shape), "errors": errors, "ms": ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-              "bytes": nbytes, "flops": case["flops"], **extra_ms,
+              "bytes": nbytes, "flops": case["flops"], **extra_ms, **loss_row,
               "wall_ms_median20": wall, "plain_wall_ms_median20": plain_wall})
         bad = [e for e in errors if not within(e["rel"], e["plain_bf16_rel"], e["tol"])]
         if bad:
             raise AssertionError(f"{name} [{label}] disagrees with its plain version: {bad}")
+        if loss_row and not (loss_row["backward_bit_equal"] and loss_row["run_to_run_equal"]
+                             and loss_row["launches_per_call"] == 2):
+            raise AssertionError(
+                f"{name} [{label}]: the backward kernel must have the bits of its plain version, a "
+                f"second call the bits of the first, and a call two launches: {loss_row}")
         agg = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                        "bound_ms": 0.0, "library_ms": None, "by": {}})
+                                        "bound_ms": 0.0, "bound_two_pass_ms": None,
+                                        "library_ms": None, "by": {}})
         agg["max_abs_err"] = max(agg["max_abs_err"], *(e["max_abs"] for e in errors))
         if case["on_path"]:
             agg["ms"] += ms
@@ -798,10 +888,17 @@ def kernel_checks(torch, params):
             agg["by"][bound_by] = agg["by"].get(bound_by, 0.0) + bound_ms
             if library_ms is not None:
                 agg["library_ms"] = (agg["library_ms"] or 0.0) + library_ms
+            if loss_row:
+                agg["bound_two_pass_ms"] = ((agg["bound_two_pass_ms"] or 0.0)
+                                            + loss_row["bound_two_pass_ms"])
         del k_res
         torch.cuda.empty_cache()
     for agg in summary.values():  # what binds most of the kernel's bound
         agg["bound_by"] = max(agg.pop("by").items(), key=lambda kv: kv[1])[0]
+
+    if only:
+        edge_cases(torch, only)
+        return summary
 
     # the W-sliced single against the unsliced single, both on the kernels
     def fwd_bwd(fn):
@@ -1158,7 +1255,7 @@ def objective_check(torch, params, mean, std):
         for what, h in [("no_hook", {}), ("gram_by_width", by_width), ("gram_matrix", as_shipped)]:
             steps[f"{name}_{what}"] = make_step_fn(
                 make_objective(block1, torch.bfloat16, h, small), OptimizerSpec()) + (small[0],)
-    times, device = {k: [] for k in steps}, {k: [] for k in steps}
+    times, device, device_launches = {k: [] for k in steps}, {k: [] for k in steps}, {}
     for _ in range(5):  # every variant in turn, five rounds
         for k, (step, optimizer, start) in steps.items():
             carry = [start, optimizer.init(start)]
@@ -1174,7 +1271,8 @@ def objective_check(torch, params, mean, std):
                 one_step()
             torch.cuda.synchronize()
             times[k].append((time.perf_counter() - t0) / 10 * 1e3)
-            device[k].append(_device_ms(torch, one_step, reps=3))
+            ms, device_launches[k], _ = _device_profile(torch, one_step, reps=3)
+            device[k].append(ms)
     emit({"phase": "objective", "size": [1024, 1024], "gram_channel_set": sorted(KG.KERNEL_CHANNELS),
           "gram_min_elements": KG.KERNEL_MIN_ELEMENTS,
           "launches": launches,
@@ -1182,6 +1280,7 @@ def objective_check(torch, params, mean, std):
           "dev_from_fp32": devs, "tol_curve": TOL_CURVE,
           "step_wall_ms_median5": {k: statistics.median(v) for k, v in times.items()},
           "step_device_ms_median5": {k: statistics.median(v) for k, v in device.items()},
+          "step_device_launches": device_launches,
           "step_wall_ms_rounds": times, "step_device_ms_rounds": device})
     for phase, v in curves.items():
         if not np.isfinite(v).all() or not max(v[-10:]) < max(v[:10]):
@@ -1210,7 +1309,8 @@ def step_profile(torch, params, mean, std):
             if m.group(1) == "true":
                 return "conv_fwd"
             return "conv_bwd_copied_input" if m.group(2) == "0" else "conv_bwd_staged_input"
-        for key in ("gram_partial_kernel", "gram_reduce_kernel", "gram_fs_kernel", "tv_"):
+        for key in ("gram_partial_kernel", "gram_reduce_kernel", "gram_fs_kernel", "tv_",
+                    "sse_kernel", "scale_cast_kernel"):
             if key in name:
                 return key.rstrip("_")
         return "other"
@@ -1301,6 +1401,10 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated phases to run (default: all; the device and build "
                              "phases always run, the kernels line needs all)")
+    parser.add_argument("--kernels", default="",
+                        help="comma-separated kernel names: the kernel phase runs only their cases "
+                             "(and the edge cases of the losses among them), e.g. "
+                             "content_loss,style_loss,tv_loss")
     parser.add_argument("--steps", type=int, default=20,
                         help="optimizer steps per scale of the stylize phases (default 20)")
     args = parser.parse_args(argv)
@@ -1308,6 +1412,10 @@ def main(argv=None) -> int:
     unknown = [p for p in phases if p not in PHASES]
     if unknown:
         parser.error(f"unknown phases {unknown}; choose from {PHASES}")
+    only = tuple(k for k in args.kernels.split(",") if k)
+    unknown = [k for k in only if k not in KERNEL_META]
+    if unknown:
+        parser.error(f"unknown kernels {unknown}; choose from {sorted(KERNEL_META)}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU",
@@ -1371,7 +1479,7 @@ def main(argv=None) -> int:
     steps = (args.steps,)
     opt_in = ("block1_full", "block1_tail", "pallas_gram", "content_loss", "style_loss")
     if "kernel" in phases:
-        summary = measured("kernel", lambda: kernel_checks(torch, params))
+        summary = measured("kernel", lambda: kernel_checks(torch, params, only))
     if "segment_forms" in phases:
         measured("segment_forms", lambda: segment_forms(torch, params))
     if "parity" in phases:
@@ -1406,7 +1514,7 @@ def main(argv=None) -> int:
     emit({"phase": "memory", "peak_mib": {"objective": peak.get("objective")},
           "seconds_by_phase": seconds_by_phase})
 
-    if all(p in phases for p in PHASES):
+    if all(p in phases for p in PHASES) and not only:
         emit({"kernels": [
             {"name": name, "route": "cuda",
              "source": "style_transfer_tpu_torch/" + sources[0],
@@ -1415,6 +1523,7 @@ def main(argv=None) -> int:
              "max_abs_err": summary[name]["max_abs_err"],
              "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"],
              "bound_ms": summary[name]["bound_ms"], "bound_by": summary[name]["bound_by"],
+             "bound_two_pass_ms": summary[name]["bound_two_pass_ms"],
              "library_ms": summary[name]["library_ms"]}
             for name, (replaces, sources, phase) in KERNEL_META.items()
         ]})

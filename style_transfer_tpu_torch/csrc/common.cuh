@@ -13,11 +13,12 @@
 //     memory.
 //   gram: M = H*W rows < 2^31, at most 65535 row chunks (gridDim.y; the
 //     wrapper asks for a few hundred); gram_fs: M < 2^31 rows.
-//   tv: H*W*C elements in size_t, one row W*C < 2^31.
+//   tv: H*W*C elements in size_t, one row W*C < 2^31 - 1024; at most 65535
+//     groups of four rows (gridDim.y): H <= 262,140.
 //   block1 (fwd, bwd, col2im): persistent blocks walk the 16x16-pixel tiles,
 //     so no grid dimension limits H or W; tiles H/16 * W/16 < 2^31 and
 //     3 * W < 2^31 (the image row in elements).
-//   epilogue (sse_diff): the element count arrives as long long.
+//   epilogue (sse, scale_cast): the element count arrives as long long.
 // The largest tensors of a 512x8192 panorama (block 1: 512*8192*64 = 268 M
 // elements; Gram rows M = 4.19 M) sit far inside; chip_smoke.py runs block 1
 // (all three forms) and TV at that size against their plain versions.
@@ -132,6 +133,61 @@ __device__ __forceinline__ uint4 pack8_bf16(const float* v) {
   raw.z = *reinterpret_cast<uint32_t*>(&p2);
   raw.w = *reinterpret_cast<uint32_t*>(&p3);
   return raw;
+}
+
+// ---- deterministic sums: warp shuffles, one value per warp through shared
+// memory, and across blocks the last block to arrive adds the partials ----
+
+// Butterfly sum of a warp: every lane ends with the same bits (halves fold
+// onto each other: lanes i and i ^ 16, then ^ 8, ... ^ 1).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum of one value per thread of an NT-thread block, valid in warp 0; `red`
+// holds NT / 32 floats of shared memory. A second call needs a
+// __syncthreads() in between.
+template <int NT>
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = (threadIdx.x < NT / 32) ? red[threadIdx.x] : 0.f;
+  return threadIdx.x < 32 ? warp_sum(v) : 0.f;
+}
+
+// out[0] = (sum of `local` over every thread of every block) / numel, in one
+// launch and with the same bits from run to run. Each block writes its sum
+// to partial[block]; a ticket from `counter` tells the last block to arrive,
+// which adds the partials in a fixed order (thread t takes t, t + NT, ...,
+// then the block sum) and writes the mean. atomicInc wraps at nblocks - 1,
+// so the counter is zero again when the kernel ends; it must be zero at the
+// launch and belong to this stream alone. One block needs neither.
+template <int NT>
+__device__ __forceinline__ void finish_mean(float local, float* partial, unsigned int* counter,
+                                            float* out, float numel, unsigned int nblocks,
+                                            unsigned int block) {
+  __shared__ float red[NT / 32];
+  __shared__ bool last;
+  const float s = block_sum<NT>(local, red);
+  if (nblocks == 1) {
+    if (threadIdx.x == 0) out[0] = __fdiv_rn(s, numel);
+    return;
+  }
+  if (threadIdx.x == 0) {
+    __stcg(partial + block, s);
+    __threadfence();
+    last = atomicInc(counter, nblocks - 1) == nblocks - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float t = 0.f;
+  for (unsigned int i = threadIdx.x; i < nblocks; i += NT) t += __ldcg(partial + i);
+  t = block_sum<NT>(t, red);
+  if (threadIdx.x == 0) out[0] = __fdiv_rn(t, numel);
 }
 
 }  // namespace st

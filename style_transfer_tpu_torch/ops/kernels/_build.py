@@ -37,6 +37,7 @@ LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points: name -> argtypes (every one returns a CUDA error code)
 _SIGNATURES = {
     "st_conv3x3_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -44,10 +45,13 @@ _SIGNATURES = {
     "st_conv3x3_tile_info": [_I, ctypes.POINTER(ctypes.c_int)],
     "st_gram": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "st_gram_fs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "st_tv_sse_grad": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "st_tv_blocks": [_I, _I],
-    "st_sse_diff": [_P, _P, _P, _P, _P, _L, _I, _P],
-    "st_sse_diff_blocks": [_L],
+    "st_tv": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "st_tv_grad": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "st_tv_info": [ctypes.POINTER(ctypes.c_int)],
+    "st_sse": [_P, _P, _P, _P, _P, _L, _F, _I, _I, _P],
+    "st_scale_cast": [_P, _P, _P, _P, _L, _F, _I, _I, _P],
+    "st_sse_info": [ctypes.POINTER(ctypes.c_int)],
+    "st_noop": [_P],
     "st_block1_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "st_block1_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "st_block1_partials": [_I, _I],

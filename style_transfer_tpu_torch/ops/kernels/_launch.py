@@ -263,38 +263,173 @@ def gram_fs(
     return out
 
 
-def tv_sse_grad(x2d: torch.Tensor, c: int, *, count: LaunchCount):
-    """(H, W*C) fp32 image -> (sse (1,) fp32, raw gradient (H, W*C) fp32)."""
+#: Threads per block of ``csrc/epilogue.cu`` and the 16-byte loads per operand
+#: that a thread has in flight at most; ``selfcheck.loss_model_matches`` holds
+#: both to the built library.
+SSE_THREADS = 256
+SSE_UNROLL = 4
+#: Up to this many 16-byte vectors (a 64 x 64 fp32 Gram) one block computes
+#: the whole loss, with no partial sums.
+SSE_ONE_BLOCK_VECTORS = SSE_THREADS * 4
+#: A thread takes a second vector per step only once the card has this many
+#: blocks per SM, and the forward's grid stops at SSE_BLOCKS_PER_SM per SM
+#: (beyond that its blocks loop).
+SSE_MIN_BLOCKS_PER_SM = 4
+SSE_BLOCKS_PER_SM = 8
+
+
+def cast_blocks(n: int, itemsize: int) -> int:
+    """Blocks of the loss backward (``scale_cast``) for ``n`` elements of
+    ``itemsize`` bytes: one 16-byte vector a thread while that gives fewer
+    than :data:`SSE_MIN_BLOCKS_PER_SM` blocks per SM, then more vectors a
+    thread, up to :data:`SSE_UNROLL`."""
+    nvec = max(1, n * itemsize // 16)
+    per_thread = min(max(nvec // (SSE_THREADS * SM_COUNT * SSE_MIN_BLOCKS_PER_SM), 1), SSE_UNROLL)
+    return -(-nvec // (SSE_THREADS * per_thread))
+
+
+def sse_blocks(n: int, itemsize: int) -> int:
+    """Blocks of the loss forward, which is also its count of partial sums:
+    one up to :data:`SSE_ONE_BLOCK_VECTORS`, else as :func:`cast_blocks` up to
+    :data:`SSE_BLOCKS_PER_SM` per SM."""
+    if n * itemsize // 16 <= SSE_ONE_BLOCK_VECTORS:
+        return 1
+    return min(cast_blocks(n, itemsize), SM_COUNT * SSE_BLOCKS_PER_SM)
+
+
+#: Threads and rows per block of ``csrc/tv.cu``.
+TV_THREADS = 256
+TV_ROWS = 4
+_MAX_GRID_Y = 65535
+
+
+def tv_grid(h: int, wc: int, c: int) -> Tuple[int, int, int]:
+    """``(vec, chunks, groups)`` of ``csrc/tv.cu`` for an (h, wc) image of
+    ``c`` channels: columns per thread (4 for an RGB image whose row is a
+    multiple of 4 floats, else 1) and the grid of column chunks x row groups,
+    whose product is the count of partial sums."""
+    vec = 4 if c == 3 and wc % 4 == 0 else 1
+    groups = -(-h // TV_ROWS)
+    if groups > _MAX_GRID_Y:
+        raise ValueError(f"tv takes images up to {_MAX_GRID_Y * TV_ROWS} rows, got {h}")
+    return vec, -(-wc // (TV_THREADS * vec)), groups
+
+
+# (device index, stream) -> [ticket counter (1,) int32, partial sums (n,) fp32]
+_REDUCE_SCRATCH = {}
+
+
+def _reduce_scratch(device: torch.device, nblocks: int):
+    """The ticket counter and the partial-sum buffer of the single-launch
+    reductions (``st::finish_mean``), one pair per device and stream: the
+    counter is zeroed once, here, and every kernel leaves it zero; kernels
+    of one stream run in order, so they can share it, and two streams never
+    do. Allocated outside any call, so a CUDA graph captured later replays
+    with the same addresses. The partial buffer grows when a grid needs it."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    entry = _REDUCE_SCRATCH.get(key)
+    if entry is None:
+        entry = [torch.zeros((1,), dtype=torch.int32, device=device),
+                 torch.empty((max(nblocks, 16384),), dtype=torch.float32, device=device)]
+        _REDUCE_SCRATCH[key] = entry
+    if entry[1].numel() < nblocks:
+        entry[1] = torch.empty((nblocks,), dtype=torch.float32, device=device)
+    return entry
+
+
+def cotangent(ct: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A scalar loss's cotangent as the kernels read it: one contiguous fp32
+    value on ``device``, made without reading it on the host (no copy at all
+    for the fp32 0-d tensor autograd passes)."""
+    if ct.numel() != 1:
+        raise ValueError(f"a scalar loss takes a scalar cotangent, got shape {tuple(ct.shape)}")
+    return ct.to(device=device, dtype=torch.float32).reshape(()).contiguous()
+
+
+def _require_cotangent(ct: torch.Tensor) -> None:
+    # autograd's tensor: 4-byte aligned only, and the kernels read it as one scalar
+    if not (ct.is_cuda and ct.dtype == torch.float32 and ct.dim() == 0):
+        raise ValueError("the cotangent must be a 0-d fp32 CUDA tensor (see cotangent())")
+
+
+def tv(x2d: torch.Tensor, c: int, *, count: LaunchCount) -> torch.Tensor:
+    """The 0-d fp32 TV mean of an (H, W*C) fp32 image, one launch."""
     h, wc = x2d.shape
     _require(x2d, "x", torch.float32, (h, wc))
+    vec, chunks, groups = tv_grid(h, wc, c)
+    counter, partial = _reduce_scratch(x2d.device, chunks * groups)
+    out = torch.empty((), dtype=torch.float32, device=x2d.device)
     lib = library()
-    partial = torch.empty((lib.st_tv_blocks(h, wc),), dtype=torch.float32, device=x2d.device)
-    sse = torch.empty((1,), dtype=torch.float32, device=x2d.device)
-    grad = torch.empty_like(x2d)
-    err = lib.st_tv_sse_grad(_ptr(x2d), _ptr(grad), _ptr(partial), _ptr(sse), h, wc, c, _stream())
-    _check_launch(lib, err, "tv_sse_grad")
+    err = lib.st_tv(_ptr(x2d), _ptr(partial), _ptr(counter), _ptr(out), h, wc, c, vec,
+                    float(h * wc), _stream())
+    _check_launch(lib, err, "tv")
     count.n += 1
-    return sse, grad
+    return out
 
 
-def sse_diff(f: torch.Tensor, t: torch.Tensor, *, count: LaunchCount):
-    """``(sse (1,) fp32, diff)`` for two equally shaped tensors, both bf16 or
-    both fp32: the fp32 sum of squared differences and ``f - t`` in their
-    dtype, in one pass."""
+def tv_grad(x2d: torch.Tensor, c: int, ct: torch.Tensor, *, count: LaunchCount) -> torch.Tensor:
+    """The TV gradient of an (H, W*C) fp32 image (the 5-point stencil) times
+    ``ct / numel``, ``ct`` from :func:`cotangent`, one launch."""
+    h, wc = x2d.shape
+    _require(x2d, "x", torch.float32, (h, wc))
+    _require_cotangent(ct)
+    vec, _, _ = tv_grid(h, wc, c)
+    grad = torch.empty_like(x2d)
+    lib = library()
+    err = lib.st_tv_grad(_ptr(x2d), _ptr(ct), _ptr(grad), h, wc, c, vec, float(h * wc), _stream())
+    _check_launch(lib, err, "tv_grad")
+    count.n += 1
+    return grad
+
+
+def _require_pair(f: torch.Tensor, t: torch.Tensor, what: str) -> None:
     if f.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"sse_diff takes bf16 or fp32 tensors, got {f.dtype}")
+        raise ValueError(f"{what} takes bf16 or fp32 tensors, got {f.dtype}")
+    if f.numel() == 0:
+        raise ValueError(f"{what} takes at least one element")
     _require(f, "f", f.dtype, tuple(f.shape))
     _require(t, "t", f.dtype, tuple(f.shape))
+
+
+def sse(f: torch.Tensor, t: torch.Tensor, *, count: LaunchCount) -> torch.Tensor:
+    """The 0-d fp32 ``mean((f - t)^2)`` of two equally shaped tensors, both
+    bf16 or both fp32, summed from the unrounded difference, one launch."""
+    _require_pair(f, t, "sse")
+    n = f.numel()
+    nblocks = sse_blocks(n, f.element_size())
+    counter, partial = _reduce_scratch(f.device, nblocks)
+    out = torch.empty((), dtype=torch.float32, device=f.device)
+    lib = library()
+    err = lib.st_sse(_ptr(f), _ptr(t), _ptr(partial), _ptr(counter), _ptr(out), n, float(n),
+                     nblocks, int(f.dtype == torch.bfloat16), _stream())
+    _check_launch(lib, err, "sse")
+    count.n += 1
+    return out
+
+
+def scale_cast(f: torch.Tensor, t: torch.Tensor, ct: torch.Tensor, *,
+               count: LaunchCount) -> torch.Tensor:
+    """The gradient of :func:`sse` to ``f``: ``round(f - t) * ((2 ct) /
+    numel)`` in their dtype (bf16 or fp32) — the difference rounded once to
+    the dtype, multiplied in fp32, rounded once more; ``ct`` from
+    :func:`cotangent`; one launch."""
+    _require_pair(f, t, "scale_cast")
+    _require_cotangent(ct)
+    out = torch.empty_like(f)
     n = f.numel()
     lib = library()
-    partial = torch.empty((lib.st_sse_diff_blocks(n),), dtype=torch.float32, device=f.device)
-    sse = torch.empty((1,), dtype=torch.float32, device=f.device)
-    diff = torch.empty_like(f)
-    err = lib.st_sse_diff(_ptr(f), _ptr(t), _ptr(diff), _ptr(partial), _ptr(sse), n,
-                          int(f.dtype == torch.bfloat16), _stream())
-    _check_launch(lib, err, "sse_diff")
+    err = lib.st_scale_cast(_ptr(f), _ptr(t), _ptr(ct), _ptr(out), n, float(n),
+                            cast_blocks(n, f.element_size()), int(f.dtype == torch.bfloat16),
+                            _stream())
+    _check_launch(lib, err, "scale_cast")
     count.n += 1
-    return sse, diff
+    return out
+
+
+def noop() -> None:
+    """Launches an empty kernel: the floor of any launch on the card."""
+    lib = library()
+    _check_launch(lib, lib.st_noop(_stream()), "noop")
 
 
 _B1_C = 64  # channels of VGG block 1, fixed in csrc/block1.cu

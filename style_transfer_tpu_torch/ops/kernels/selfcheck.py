@@ -17,6 +17,16 @@ tiles leave the last persistent block a short run, with only the pooled
 cotangent, only the Gram's, and both; and ``block1_col2im`` against its plain
 version, bit for bit.
 
+The loss kernels of ``csrc/epilogue.cu`` and ``csrc/tv.cu`` run through
+their wrappers (``epilogue.content_loss``, ``tv_loss``) under autograd: the
+SSE at element counts around the vector width (1, 7, 8,
+9), around one block's share (2047, 2048, 2049), at the Gram sizes (64^2,
+512^2), at conv4_2's 8388608 and at 8388611, in bf16 and fp32; TV from a
+single pixel and single rows and columns (scalar columns) to 512x8192 (the
+widest index); each with the cotangents 1, 0.7 and 0. The loss is held to
+float64, the gradient must have the bits of its plain backward, and two
+launches the same bits.
+
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` run the same lists. Needs
 a CUDA device; nothing here runs on the CPU.
 """
@@ -30,7 +40,9 @@ import torch.nn.functional as F
 
 from style_transfer_tpu_torch.ops.kernels import _launch
 from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
-from style_transfer_tpu_torch.ops.kernels.tolerances import TOL_ACT, TOL_DX, TOL_GRAM
+from style_transfer_tpu_torch.ops.kernels.tolerances import (
+    TOL_ACT, TOL_DX, TOL_GRAM, TOL_LOSS, TOL_TV,
+)
 
 C1 = 64  # channels of VGG block 1
 
@@ -44,6 +56,9 @@ GRAM_ROWS = ((60, 6, 1, 4), (4096, 64, 8, 56), (65536, 256, 8, 248), (262144, 51
 GRAM_CHANNELS = (64, 128, 256, 512)
 BLOCK1_SIZES = SIZES + ((210, 300),)
 BLOCK1_COTANGENTS = ("pool", "gram", "both")
+SSE_COUNTS = (1, 7, 8, 9, 2047, 2048, 2049, 64 * 64, 512 * 512, 8388608, 8388611)
+TV_SIZES = ((1, 1), (1, 9), (9, 1), (2, 2), (5, 7), (63, 65), (362, 362), (512, 8192))
+LOSS_COTANGENTS = (1.0, 0.7, 0.0)
 
 
 def conv_fwd_cases():
@@ -262,9 +277,74 @@ def run_col2im(name: str, dev) -> dict:
             "run_to_run_equal": torch.equal(outs[0], outs[1]) and exact, "launches": 2}
 
 
+def loss_cases():
+    sse = [f"sse-{dt}-{n}-ct{ct}" for dt in ("bf16", "fp32") for n in SSE_COUNTS
+           for ct in LOSS_COTANGENTS]
+    return sse + [f"tv-{h}x{w}-ct{ct}" for (h, w) in TV_SIZES for ct in LOSS_COTANGENTS]
+
+
+def run_loss(name: str, dev) -> dict:
+    """One loss case, called twice: the loss against float64, the gradient
+    against the plain backward (bit for bit) and against float64, and
+    whether both calls gave the same bits."""
+    from style_transfer_tpu_torch.ops.kernels import epilogue as EP
+
+    kind, *spec, ct = name.split("-")
+    ct = torch.tensor(float(ct[2:]), device=dev)
+    gen = _gen(name, dev)
+    if kind == "sse":
+        dtype = torch.bfloat16 if spec[0] == "bf16" else torch.float32
+        x = torch.rand(int(spec[1]), generator=gen, device=dev).to(dtype)
+        t = torch.rand(int(spec[1]), generator=gen, device=dev).to(dtype)
+        d64 = x.double() - t.double()
+        ref, ref_grad = (d64 * d64).mean(), d64 * (2.0 * ct.double() / x.numel())
+        fn, plain, count = (lambda v: EP.content_loss(v, t), lambda v: EP.content_loss_plain(v, t),
+                            EP.content_launches)
+        plain_grad = EP.sse_backward_plain(ct, x, t)
+        tols = (TOL_LOSS, TOL_ACT if dtype == torch.bfloat16 else TOL_LOSS)
+    else:
+        h, w = (int(v) for v in spec[0].split("x"))
+        x = torch.rand(1, h, w, 3, generator=gen, device=dev)
+        x64 = x.double().requires_grad_(True)
+        ref = (((x64[:, 1:] - x64[:, :-1]) ** 2).sum()
+               + ((x64[:, :, 1:] - x64[:, :, :-1]) ** 2).sum()) / x64.numel()
+        (ref_grad,) = torch.autograd.grad(ref, x64, ct.double())
+        ref = ref.detach()
+        fn, plain, count = EP.tv_loss, EP.tv_loss_plain, EP.launches
+        plain_grad = EP.tv_backward_plain(x, ct)
+        tols = (TOL_TV, TOL_TV)
+
+    def call(f):
+        xr = x.detach().requires_grad_(True)
+        loss = f(xr)
+        (g,) = torch.autograd.grad(loss, xr, ct)
+        return loss.detach(), g
+
+    before = count.n
+    loss, grad = call(fn)
+    launches = count.n - before  # one forward and one backward
+    again = call(fn)
+    p_loss, _ = call(plain)
+    same = torch.equal(again[0], loss) and torch.equal(again[1], grad)
+    exact = torch.equal(grad, plain_grad)
+
+    def entry(what, kernel, plain_out, ref_out, tol):  # as _entry, compared in float64
+        rel = lambda a: float((a.double() - ref_out).norm() / ref_out.norm().clamp_min(1e-30))  # noqa: E731
+        return {"what": what, "rel": rel(kernel), "plain_bf16_rel": rel(plain_out), "tol": tol,
+                "max_abs": float((kernel.double() - ref_out).abs().max())}
+
+    errors = [entry("loss", loss, p_loss, ref, tols[0])]
+    if float(ct) != 0.0:  # a zero gradient has no relative error
+        errors.append(entry("dx", grad, plain_grad, ref_grad, tols[1]))
+    return {"case": name, "errors": errors, "run_to_run_equal": same, "backward_exact": exact,
+            "launches": launches}
+
+
 def run_case(name: str, dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if name.startswith(("sse-", "tv-")):
+        return run_loss(name, dev)
     if name.startswith("fwd-"):
         return run_conv_fwd(name, dev)
     if name.startswith("bwd-"):
@@ -277,7 +357,20 @@ def run_case(name: str, dev) -> dict:
 
 
 def all_cases():
-    return conv_fwd_cases() + conv_bwd_cases() + gram_cases() + block1_cases()
+    return conv_fwd_cases() + conv_bwd_cases() + gram_cases() + block1_cases() + loss_cases()
+
+
+def loss_model_matches(lib) -> bool:
+    """Whether the wrapper's model of the loss kernels' grids (threads per
+    block of ``csrc/epilogue.cu`` and ``csrc/tv.cu``, loads in flight per
+    thread, rows per block) is the built library's."""
+    import ctypes
+
+    sse, tv = (ctypes.c_int * 2)(), (ctypes.c_int * 2)()
+    if lib.st_sse_info(sse) or lib.st_tv_info(tv):
+        return False
+    return (list(sse) == [_launch.SSE_THREADS, _launch.SSE_UNROLL]
+            and list(tv) == [_launch.TV_THREADS, _launch.TV_ROWS])
 
 
 def block1_model_matches(lib) -> bool:

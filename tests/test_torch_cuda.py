@@ -12,8 +12,9 @@ VGG layers (Grams need multiples of 64), and spatial sizes off the kernels'
 tiles (8x8, 8x16 and 16x16 pixels) so the ragged tile edges run (the
 ``_narrow`` block-1 cases are 26x12: narrower than one tile, and a ragged
 last tile row); ``ops/kernels/selfcheck.py`` adds the launchers of the
-tensor-core conv and Gram kernels one option at a time, and the one-pass
-block-1 kernels at ragged sizes with each cotangent alone. The kernel runs in bf16 (TV in fp32) against
+tensor-core conv and Gram kernels one option at a time, the one-pass
+block-1 kernels at ragged sizes with each cotangent alone, and the fused
+losses from one element to 12.6 M. The kernel runs in bf16 (TV in fp32) against
 its plain version run in fp32 on the same bf16-valued inputs, under the
 limits of ``ops/kernels/tolerances.py`` that ``chip_smoke.py`` applies too:
 an absolute limit per output, and no less accurate than the plain version
@@ -188,16 +189,19 @@ def test_cuda_kernel_matches_plain_version(name, cuda_device):
 def test_cuda_tensor_core_kernel_edge_case(name, cuda_device):
     """The launchers of the tensor-core conv and Gram kernels, one option at
     a time, at sizes ragged against every tile and at conv1_1's channel
-    counts, and the one-pass block-1 kernels with each cotangent alone and
-    both (``ops/kernels/selfcheck.py``): within the limits of
+    counts, the one-pass block-1 kernels with each cotangent alone and
+    both, and the fused losses with the cotangents 1, 0.7 and 0
+    (``ops/kernels/selfcheck.py``): within the limits of
     ``tolerances.py``, the ReLU mask wrong only within bf16 rounding of zero,
-    and bit-equal from one launch to the next."""
+    bit-equal from one launch to the next, and a loss's gradient bit-equal
+    to its plain backward."""
     res = selfcheck.run_case(name, cuda_device)
     torch.cuda.synchronize()
     for e in res["errors"]:
         assert T.within(e["rel"], e["plain_bf16_rel"], e["tol"]), (name, e)
     assert res.get("mask_slip", 0.0) <= res.get("mask_slip_limit", 0.0), (name, res)
     assert res["run_to_run_equal"], name
+    assert res.get("backward_exact", True), name
     assert res["launches"] == 2
 
 
@@ -218,6 +222,16 @@ def test_cuda_block1_model_is_the_built_librarys(cuda_device):
     from style_transfer_tpu_torch.ops.kernels import _build
 
     assert selfcheck.block1_model_matches(_build.library())
+
+
+@pytest.mark.cuda
+def test_cuda_loss_grid_model_is_the_built_librarys(cuda_device):
+    """The wrapper's threads per block, loads in flight and rows per block of
+    the loss kernels are those compiled into ``csrc/epilogue.cu`` and
+    ``csrc/tv.cu``."""
+    from style_transfer_tpu_torch.ops.kernels import _build
+
+    assert selfcheck.loss_model_matches(_build.library())
 
 
 @pytest.mark.cuda
@@ -279,14 +293,19 @@ def test_cuda_block1_kernels_launch_once_forward_and_once_backward(cuda_device):
 @pytest.mark.cuda
 def test_cuda_losses_are_deterministic_and_counted(cuda_device):
     """The fused losses sum per-block partials in a fixed order: the same
-    bits run to run. Each launch counts under its own counter."""
+    bits run to run. Each launch counts under its own counter: one forward,
+    one backward. The cotangent is read on the device."""
     f = torch.rand(1, 64, 64, 512, device=cuda_device).to(torch.bfloat16).requires_grad_(True)
     t = torch.rand(1, 64, 64, 512, device=cuda_device).to(torch.bfloat16)
     before = (EP.content_launches.n, EP.style_launches.n, KG.launches.n)
     a, b = EP.content_loss(f, t), EP.content_loss(f, t)
     assert a.item() == b.item() and EP.content_launches.n == before[0] + 2
-    (df,) = torch.autograd.grad(a, f)
-    assert df.dtype == torch.bfloat16 and EP.content_launches.n == before[0] + 2
+    (df,) = torch.autograd.grad(a, f, retain_graph=True)
+    assert df.dtype == torch.bfloat16 and EP.content_launches.n == before[0] + 3
+    assert torch.equal(df, EP.sse_backward_plain(torch.ones((), device=cuda_device), f.detach(), t))
+    (df7,) = torch.autograd.grad(0.7 * a, f)  # a cotangent that autograd computed on the device
+    assert EP.content_launches.n == before[0] + 4
+    assert torch.equal(df7, EP.sse_backward_plain(torch.tensor(0.7, device=cuda_device), f.detach(), t))
     g = KG.pallas_gram(f)
     assert KG.launches.n == before[2] + 1 and g.shape == (512, 512)
     s = EP.style_loss(g, g.T.contiguous() * 0.5)
@@ -336,7 +355,7 @@ def test_cuda_fused_block1_path_launch_counts(cuda_device):
     out = st.stylize(content, style,
                      StylizeConfig(size=64, min_scale=64, iterations=(steps,), fused_block1=True))
     assert B1.full_launches.n == full + 2 * steps + 2
-    assert EP.launches.n == tv + steps
+    assert EP.launches.n == tv + 2 * steps  # forward and backward
     assert [c.n for c in chain] == before
     assert out.shape == (64, 64, 3) and np.isfinite(out).all()
 
