@@ -95,9 +95,24 @@ Phases, one JSON object per line on stdout:
 11. ladder — ``stylize()`` of a 2048x2048 image over 256 -> 2048, 100 steps a
    scale, on the kernel chain and on the plain bf16 path, twice each in
    turns: steady it/s per scale, wall clock, peak memory and final loss.
+12. lbfgs — L-BFGS (``optim.py``, ``linesearch.py``) through ``stylize()``:
+   configuration 4 (memory 10, TV weight 8, ``stop_tol`` 1e-3 over 3
+   chunks) at 1024 px over 256 -> 512 -> 1024, ``--steps`` a scale: the
+   chain's four kernels must launch on every line-search trial and no
+   opt-in or large-image kernel anywhere; per scale the steady it/s,
+   objective evaluations and line-search steps a step, each step's learning
+   rate and errors, host reads a step, peak memory and where early stop
+   fired; the loss curves against the same run on the plain fp32 path
+   (``tolerances.TOL_LBFGS_CURVE`` on the first chunk,
+   ``TOL_LBFGS_CHUNK`` at every chunk's end, falling by chunk peaks). Then
+   ten steps at 1024 px with ``linesearch_tol`` 1e-3 and 0 in turns, early
+   stop at 256 px (the last event must carry ``done``), and a resume at
+   1024 px from the first chunk's ``get_state()``, which must end on the
+   uninterrupted run's bits.
 
-Each stylize phase and each arm of the objective phase sets every launch
-count to 0 just before it runs and reads them all just after. Then a
+Each stylize phase, each arm of the objective phase and the lbfgs phase's
+configuration-4 run set every launch count to 0 just before they run and
+read them all just after. Then a
 ``{"kernels": [...]}`` summary line (eleven kernels, each with the launches
 of the phase whose path runs it, forward and backward kernels alike, its
 error, its time, the plain version's, the library call's and its bound, for
@@ -110,8 +125,9 @@ with code 2 before doing anything else.
 ``--kernels a,b`` only the named kernels' cases of the kernel phase (``--phases
 kernel --kernels content_loss,style_loss,tv_loss``: the losses with their
 edge cases, a quarter of a minute after the build) and ``--steps N`` sets the
-optimizer steps per scale of the stylize phases, for comparing two trees in
-turns; the ``kernels`` line needs every phase and every kernel.
+optimizer steps per scale of the stylize phases and of lbfgs's first part,
+for comparing two trees in turns; the ``kernels`` line needs every phase and
+every kernel.
 """
 
 from __future__ import annotations
@@ -1048,6 +1064,16 @@ def _stylize(torch, st, content, style, cfg):
     return out, curves, dict(rec.summary(), sizes=sizes, peak_mib=peak), seconds
 
 
+def _counted_stylize(torch, st, content, style, cfg):
+    """:func:`_stylize` with every launch count set to 0 just before it and
+    read just after: (output, curves, summary, seconds, launches)."""
+    counters = _counters()
+    for c in counters.values():
+        c.n = 0
+    out, curves, summary, seconds = _stylize(torch, st, content, style, cfg)
+    return out, curves, summary, seconds, {k: c.n for k, c in counters.items()}
+
+
 def stylize_check(torch, params, mean, std, *, phase, content, style, cfg, required, absent=()):
     """Phases 6 to 8: one path through the public API, with every launch
     count set to 0 just before it and read just after, against witness runs
@@ -1059,12 +1085,8 @@ def stylize_check(torch, params, mean, std, *, phase, content, style, cfg, requi
 
     from style_transfer_tpu_torch import StyleTransfer
 
-    counters = _counters()
     st = StyleTransfer(params, mean=mean, std=std, device="cuda")
-    for c in counters.values():
-        c.n = 0
-    out, curves, summary, seconds = _stylize(torch, st, content, style, cfg)
-    launches = {k: c.n for k, c in counters.items()}
+    out, curves, summary, seconds, launches = _counted_stylize(torch, st, content, style, cfg)
 
     # witnesses: the plain path in fp32 (cuDNN, TF32 off) and in bf16
     plain = dataclasses.replace(cfg, use_fused=False)
@@ -1388,8 +1410,243 @@ def ladder(torch, params, mean, std):
     emit({"phase": "ladder", "steps_per_scale": 100, "runs": runs})
 
 
+LS_FIELDS = ("learning_rate", "decrease_error", "curvature_error", "num_linesearch_steps")
+
+
+def _ls_info(state):
+    """The line search's scalars of an L-BFGS state (device tensors)."""
+    return {f: getattr(state.linesearch, f) for f in LS_FIELDS}
+
+
+def _read_infos(torch, infos):
+    """Per-step lists of each field, one host read a field."""
+    return {f: torch.stack([i[f].float() for i in infos]).tolist() for f in LS_FIELDS}
+
+
+class _LBFGSTrace:
+    """While active, records every L-BFGS update of the port: the line
+    search's scalars after it (device tensors, read after the run) and, for
+    every line-search trial, how many times each kernel of ``required``
+    launched during it. No host read of its own."""
+
+    def __init__(self, required):
+        self.required = required
+        self.states, self.trials = [], []
+
+    def __enter__(self):
+        from style_transfer_tpu_torch import optim
+
+        counters = _counters()
+        self._real = real = optim.LBFGS.update
+        trace = self
+
+        def update(opt, grad, state, image, *, value, value_fn):
+            def counted(x):
+                before = {k: counters[k].n for k in trace.required}
+                out = value_fn(x)
+                trace.trials.append({k: counters[k].n - before[k] for k in trace.required})
+                return out
+
+            updates, new = real(opt, grad, state, image, value=value, value_fn=counted)
+            trace.states.append((tuple(image.shape[1:3]), _ls_info(new)))
+            return updates, new
+
+        optim.LBFGS.update = update
+        return self
+
+    def __exit__(self, *exc):
+        from style_transfer_tpu_torch import optim
+
+        optim.LBFGS.update = self._real
+
+    def per_scale(self, torch):
+        """{size: per-step lists of learning_rate, decrease_error,
+        curvature_error and num_linesearch_steps} (one host read a field)."""
+        return {"x".join(map(str, size)): _read_infos(torch, [i for sz, i in self.states
+                                                               if sz == size])
+                for size in dict.fromkeys(sz for sz, _ in self.states)}
+
+
+def lbfgs_check(torch, params, mean, std, steps):
+    """Phase 12: L-BFGS (``optax.lbfgs`` with the zoom line search, ported
+    in ``optim.py`` / ``linesearch.py``) through ``stylize()`` on the default
+    kernel chain. Four parts:
+
+    1. configuration 4 (``configs/config4_lbfgs_tv_1024.toml``: memory 10,
+       TV weight 8, ``stop_tol`` 1e-3 over 3 chunks) at 1024 px over 256 ->
+       512 -> 1024, ``steps`` a scale in chunks of 10, launch counts set to 0
+       just before and read just after: the chain's kernels must launch on
+       every line-search trial, no opt-in or large-image kernel anywhere; per
+       scale the steady it/s, objective evaluations a step, line-search steps
+       and each step's learning rate and errors, host reads a step, peak
+       memory and where early stop fired; against a witness run on the plain
+       path in fp32, every scale falling by chunk peaks, the loss at every
+       chunk's end within ``tolerances.TOL_LBFGS_CHUNK`` and the first
+       chunk's steps within ``TOL_LBFGS_CURVE`` (L-BFGS's curves part
+       within a chunk where Adam's hold ``TOL_CURVE``: see tolerances.py);
+    2. ten steps at 1024 px with ``linesearch_tol`` 1e-3 and 0, in turns,
+       twice: line-search steps, errors and it/s of each, and the
+       synchronizing CUDA calls of one more step
+       (``torch.cuda.set_sync_debug_mode``);
+    3. early stop at 256 px (``stop_tol=1``, ``stop_patience=1``): the run
+       ends before its planned iterations and its last event has ``done``;
+    4. resume at 1024 px: 30 steps in chunks of 10, and the same run resumed
+       from ``get_state()`` of its first chunk, which must end on the same
+       bits."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+
+    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
+    from style_transfer_tpu_torch import linesearch
+    from style_transfer_tpu_torch.ops.kernels.tolerances import TOL_LBFGS_CHUNK, TOL_LBFGS_CURVE
+    from style_transfer_tpu_torch.optim import OptimizerSpec, make_step_fn
+
+    chain = ("block1_packed", "conv_pair", "conv_gram", "tv_loss")
+    absent = ("conv_single", "gram_tail", "block1_full", "block1_tail", "pallas_gram",
+              "content_loss", "style_loss")
+    r = np.random.RandomState(6)
+    content = r.rand(1024, 1024, 3).astype(np.float32)
+    style = r.rand(1024, 1024, 3).astype(np.float32)
+    st = StyleTransfer(params, mean=mean, std=std, device="cuda")
+    spec = OptimizerSpec("lbfgs", memory_size=10)
+    chunk = 10
+    cfg = StylizeConfig(size=1024, min_scale=256, optimizer=spec, tv_weight=8.0, stop_tol=1e-3,
+                        stop_patience=3, iterations=(steps,) * 3, chunk_size=chunk)
+
+    # 1. configuration 4
+    reads0 = linesearch.host_reads.n
+    with _LBFGSTrace(chain) as trace:
+        out, curves, summary, seconds, launches = _counted_stylize(torch, st, content, style, cfg)
+    host_reads = linesearch.host_reads.n - reads0
+    per_scale = trace.per_scale(torch)
+    st32 = StyleTransfer(params, mean=mean, std=std, device="cuda", compute_dtype=torch.float32)
+    _, curves32, summary32, seconds32 = _stylize(
+        torch, st32, content, style, dataclasses.replace(cfg, use_fused=False))
+    n_steps = sum(len(v) for v in curves.values())
+    trials = len(trace.trials)
+    missed = [i for i, t in enumerate(trace.trials) if not all(t[k] > 0 for k in chain)]
+    first_dev = max(abs(x - y) / abs(y) for x, y in zip(curves[0][:chunk], curves32[0][:chunk]))
+    ends = lambda v: v[chunk - 1::chunk] + ([v[-1]] if len(v) % chunk else [])  # noqa: E731
+    chunk_dev = {k: [abs(x - y) / abs(y) for x, y in zip(ends(curves[k]), ends(curves32[k]))]
+                 for k in curves}
+    scales = {}
+    for k, (size, info) in enumerate(per_scale.items()):
+        nls = info["num_linesearch_steps"]
+        scales[size] = {
+            "steps": len(curves[k]), "planned": steps,
+            "host_reads_per_step": (sum(nls) + -(-len(nls) // chunk)) / len(nls),
+            "early_stop_at": len(curves[k]) if len(curves[k]) < steps else None,
+            "its_per_sec_steady": summary["per_scale_its_per_sec"].get(k),
+            "evaluations_per_step": 1 + sum(nls) / len(nls),
+            "linesearch_steps_mean": sum(nls) / len(nls), "linesearch_steps_max": max(nls),
+            "learning_rate": info["learning_rate"], "decrease_error": info["decrease_error"],
+            "curvature_error": info["curvature_error"],
+            "peak_mib": summary["peak_mib"].get(k),
+            "plain_fp32_its_per_sec_steady": summary32["per_scale_its_per_sec"].get(k),
+            "final_loss": curves[k][-1], "plain_fp32_final_loss": curves32[k][-1],
+        }
+    result = {
+        "phase": "lbfgs", "part": "config4_1024", "sizes": summary["sizes"], "seconds": seconds,
+        "plain_fp32_seconds": seconds32, "launches": launches, "linesearch_trials": trials,
+        "trials_without_every_chain_kernel": len(missed), "scales": scales,
+        "host_reads_per_step": (host_reads + n_steps / chunk) / n_steps,
+        "linesearch_host_reads": host_reads,
+        "first_chunk_dev_from_fp32": first_dev, "tol_curve": TOL_LBFGS_CURVE,
+        "chunk_end_dev_from_fp32": chunk_dev, "tol_chunk": TOL_LBFGS_CHUNK,
+        "loss_per_step": curves, "plain_fp32_loss_per_step": curves32,
+        "out_shape": list(out.shape), "out_min": float(out.min()), "out_max": float(out.max()),
+    }
+    emit(result)
+    if missed:
+        raise AssertionError(f"lbfgs: line-search trials without every chain kernel: {missed[:5]}")
+    if host_reads != trials:
+        raise AssertionError(f"lbfgs: {host_reads} line-search host reads for {trials} trials")
+    never = [k for k in chain if launches[k] == 0]
+    stray = [k for k in absent if launches[k] != 0]
+    if never or stray:
+        raise AssertionError(f"lbfgs: chain kernels never launched {never}, off-path kernels "
+                             f"launched {stray}")
+    for k, v in curves.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"lbfgs scale {k}: loss not finite: {v}")
+        if len(v) > chunk and not max(v[-chunk:]) < max(v[:chunk]):
+            raise AssertionError(f"lbfgs scale {k}: loss not falling within the scale: {v}")
+        if not max(chunk_dev[k]) <= TOL_LBFGS_CHUNK:
+            raise AssertionError(f"lbfgs scale {k}: chunk-end losses {chunk_dev[k]} from the fp32 "
+                                 f"witness's > {TOL_LBFGS_CHUNK}")
+    if not first_dev <= TOL_LBFGS_CURVE:
+        raise AssertionError(f"lbfgs: first chunk departs from the fp32 path by {first_dev}")
+    if out.shape != (1024, 1024, 3) or not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        raise AssertionError("lbfgs: stylize output has the wrong shape or values")
+
+    # 2. the line-search tolerance at 1024 px
+    one = dataclasses.replace(cfg, size=1024, min_scale=1024)
+    c = torch.from_numpy(content)[None].cuda()
+    s = torch.from_numpy(style)[None].cuda()
+    objective = st._build_objective(one)
+    c_t, s_t = st._capture_content(one, c), st._capture_style(one, s)
+    tols = {}
+    for tol in (1e-3, 0.0, 1e-3, 0.0):
+        step, opt = make_step_fn(lambda im: objective(im, c_t, s_t),
+                                 dataclasses.replace(spec, linesearch_tol=tol))
+        image, state, infos = c, opt.init(c), []
+        reads0 = linesearch.host_reads.n
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            image, state, _ = step(image, state)
+            infos.append(_ls_info(state))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        reads = linesearch.host_reads.n - reads0
+        with warnings.catch_warnings(record=True) as caught:  # every synchronizing call of a step
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(image, state)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        info = _read_infos(torch, infos)
+        nls = info["num_linesearch_steps"]
+        tols.setdefault(str(tol), []).append(dict(
+            info, its_per_sec=10 / wall, linesearch_steps_mean=sum(nls) / len(nls),
+            host_reads=reads, syncs_in_one_more_step=syncs,
+            final_loss=float(state.linesearch.value)))
+    emit({"phase": "lbfgs", "part": "linesearch_tol_1024", "steps": 10, "runs_in_turns": tols})
+    del c, s, c_t, s_t, objective
+    torch.cuda.empty_cache()
+
+    # 3. early stop at 256 px
+    small = r.rand(256, 256, 3).astype(np.float32)
+    events = []
+    early = StylizeConfig(size=256, min_scale=256, optimizer=spec, tv_weight=8.0, stop_tol=1.0,
+                          stop_patience=1, iterations=(5 * chunk,), chunk_size=chunk)
+    st.stylize(small, small[::-1].copy(), early, callback=events.append)
+    emit({"phase": "lbfgs", "part": "early_stop_256", "planned": 5 * chunk,
+          "events": [[e.iteration, e.done] for e in events]})
+    if not (events[-1].iteration < 5 * chunk and events[-1].done):
+        raise AssertionError("lbfgs: early stop did not end the run with a done event")
+
+    # 4. resume on the card
+    again = StylizeConfig(size=1024, min_scale=1024, optimizer=spec, tv_weight=8.0,
+                          iterations=(3 * chunk,), chunk_size=chunk)
+    saved = []
+    full = st.stylize(content, style, again,
+                      callback=lambda ev: saved.append(ev.get_state()) if not saved else None)
+    resumed = st.stylize(content, style, again, resume_state=saved[0])
+    equal = bool(np.array_equal(full, resumed))
+    emit({"phase": "lbfgs", "part": "resume_1024", "resumed_from_iteration": int(saved[0]["iteration"]),
+          "bit_equal": equal, "max_abs_diff": float(np.abs(full - resumed).max())})
+    if not equal:
+        raise AssertionError("lbfgs: the resumed run does not end on the uninterrupted run's bits")
+    return launches
+
+
 PHASES = ("kernel", "segment_forms", "parity", "stylize", "large", "fused_block1", "objective",
-          "profile", "ladder")
+          "profile", "ladder", "lbfgs")
 
 
 def main(argv=None) -> int:
@@ -1511,6 +1768,9 @@ def main(argv=None) -> int:
         timed("profile", lambda: step_profile(torch, params, mean, std))
     if "ladder" in phases:
         timed("ladder", lambda: ladder(torch, params, mean, std))
+    if "lbfgs" in phases:
+        launches["lbfgs"] = timed("lbfgs", lambda: lbfgs_check(torch, params, mean, std,
+                                                             args.steps))
     emit({"phase": "memory", "peak_mib": {"objective": peak.get("objective")},
           "seconds_by_phase": seconds_by_phase})
 

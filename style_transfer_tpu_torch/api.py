@@ -50,8 +50,16 @@ card raises for the chain); on the CPU it is fp32 and the chain runs each
 kernel's plain PyTorch version. ``use_fused=False`` runs the plain
 ``extract_features`` path everywhere (the JAX ``--unfused``).
 
-Left out (ROADMAP.md): L-BFGS, pipelined chunks and background compiles,
-early stop, remat, resume/checkpoints, the ``debug_checks`` sanitizer,
+The optimizer is Adam or L-BFGS (``optim.py``; L-BFGS's zoom line search
+evaluates the same objective, kernels and all, at each trial point). The
+chunk loop carries the reference's per-chunk decision (``api.py:1433-1498``)
+in its order: the ``debug_checks`` sanitizer, the early-stop rule
+(``stop_tol`` / ``stop_patience``, decided before the callback so the last
+event of a run that stops early carries ``done=True``), then the callback,
+whose event's ``get_state`` is the resumable state of that chunk;
+``stylize(resume_state=...)`` continues from it (``utils/ckpt.py``).
+
+Left out (ROADMAP.md): pipelined chunks and background compiles, remat,
 grid snapping and the 2^31 TPU resolution ceiling, meshes, and the
 ``packed_block*`` switches (the chain engages by its structural gates alone).
 """
@@ -59,6 +67,7 @@ grid snapping and the 2^31 TPU resolution ceiling, meshes, and the
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 import warnings
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -80,6 +89,7 @@ from style_transfer_tpu_torch.ops.kernels import gram as KG
 from style_transfer_tpu_torch.optim import OptimizerSpec, make_step_fn
 from style_transfer_tpu_torch.schedule import _round_even, build_plan
 from style_transfer_tpu_torch.utils import imgio
+from style_transfer_tpu_torch.utils.ckpt import flatten_opt_state, restore_opt_state
 from style_transfer_tpu_torch.utils.progress import Callback, ProgressEvent
 
 
@@ -111,6 +121,11 @@ class StylizeConfig:
     # Exponential moving average of the iterates (decay per step) is the
     # returned image when > 0; the raw image keeps optimizing.
     avg_decay: float = 0.0
+    # Convergence-matched stopping (config 4, BASELINE.json:10): stop a scale
+    # early when the relative chunk-mean loss improvement stays below
+    # ``stop_tol`` for ``stop_patience`` consecutive chunks. 0 disables.
+    stop_tol: float = 0.0
+    stop_patience: int = 2
     # The fused kernel chain (CUDA kernels on the GPU, their plain versions on
     # the CPU); False = the plain extract_features path everywhere.
     use_fused: bool = True
@@ -119,6 +134,9 @@ class StylizeConfig:
     # activation requested beyond conv1_1's Gram; else it changes nothing but
     # still switches the chain off, as in the reference).
     fused_block1: bool = False
+    # Sanitizer: verify every fetched loss term is finite and raise with run
+    # coordinates otherwise. Host-side only: the steps are unchanged.
+    debug_checks: bool = False
 
     def end_size(self, content_hw: Tuple[int, int]) -> Tuple[int, int]:
         if isinstance(self.size, int):
@@ -422,12 +440,16 @@ class StyleTransfer:
         *,
         callback: Optional[Callback] = None,
         init_image: Optional[np.ndarray] = None,
+        resume_state: Optional[dict] = None,
         output_dtype: str = "float32",
     ) -> np.ndarray:
         """Run the full multi-scale stylization; returns RGB (H, W, 3), float
         in [0, 1] or, with ``output_dtype="uint8"``, quantized on the device.
         ``content``/``styles`` are RGB (H, W, 3) arrays, float in [0, 1] or
-        uint8."""
+        uint8. ``resume_state`` (a ``ProgressEvent.get_state()`` of this
+        package or of the JAX package, or ``CheckpointManager.latest()``)
+        skips the scales before its own and restores the image, the EMA and
+        the optimizer state."""
         if output_dtype not in ("float32", "uint8"):
             raise ValueError(f"output_dtype must be float32 or uint8, got {output_dtype!r}")
         cfg = config or StylizeConfig()
@@ -462,7 +484,17 @@ class StyleTransfer:
         objective = self._build_objective(cfg)
         averaging = cfg.avg_decay > 0
         image = ema = None
+        resume_scale = resume_iters = -1
+        if resume_state is not None:
+            resume_scale = int(resume_state["scale_index"])
+            resume_iters = int(resume_state["iteration"])
+            if resume_scale >= len(plan):
+                raise ValueError(
+                    f"checkpoint at scale {resume_scale} but plan has {len(plan)} scales"
+                )
         for scale in plan:
+            if scale.index < resume_scale:
+                continue
             h, w = scale.size
             content_s = imgio.resize_image(content_t, (h, w))
             c_targets = self._capture_content(cfg, content_s)
@@ -474,19 +506,39 @@ class StyleTransfer:
                     gram_list[l].append(grams[l])
             s_targets = {l: L.blend_grams(gs, blend) for l, gs in gram_list.items()}
 
-            if image is None:
-                image = self._init_image(cfg, content_s, init_image, (h, w))
-                ema = image.clone() if averaging else None
-            else:
-                image = imgio.resize_image(image, (h, w))
-                if averaging:
-                    ema = imgio.resize_image(ema, (h, w))
-
             step, optimizer = make_step_fn(
                 lambda im, c=c_targets, s=s_targets: objective(im, c, s), cfg.optimizer
             )
-            opt_state = optimizer.init(image)
-            done_iters = 0
+            if scale.index == resume_scale:
+                image = self._state_image(resume_state["image"])
+                if tuple(image.shape) != (1, h, w, 3):
+                    raise ValueError(
+                        f"checkpoint image shape {tuple(image.shape)} does not match "
+                        f"scale {scale.index} shape (1, {h}, {w}, 3)"
+                    )
+                opt_state = restore_opt_state(optimizer.init(image),
+                                              list(resume_state["opt_state_leaves"]))
+                done_iters = min(resume_iters, scale.iterations)
+                if averaging:
+                    ema = self._state_image(resume_state.get("ema", resume_state["image"]))
+            else:
+                if image is None:
+                    image = self._init_image(cfg, content_s, init_image, (h, w))
+                    ema = image.clone() if averaging else None
+                else:
+                    image = imgio.resize_image(image, (h, w))
+                    if averaging:
+                        ema = imgio.resize_image(ema, (h, w))
+                # contiguous, as a resumed image is: one layout, the same sums
+                image = image.contiguous()
+                ema = ema.contiguous() if averaging else None
+                opt_state = optimizer.init(image)
+                done_iters = 0
+
+            # Nothing below writes a tensor in place (the optimizers return
+            # new states), so an event keeps its chunk's own image, EMA and
+            # state however many chunks run after it.
+            prev_mean, stall = None, 0
             while done_iters < scale.iterations:
                 n = min(cfg.chunk_size, scale.iterations - done_iters)
                 t0 = time.perf_counter()
@@ -502,6 +554,26 @@ class StyleTransfer:
                 }
                 dt = time.perf_counter() - t0
                 done_iters += n
+
+                if cfg.debug_checks:
+                    bad = {k: v for k, v in losses.items() if not np.isfinite(v).all()}
+                    if bad:
+                        raise FloatingPointError(
+                            f"non-finite loss terms {sorted(bad)} at scale "
+                            f"{scale.index} ({h}x{w}), iteration {done_iters}"
+                        )
+
+                # Early stop is decided BEFORE the callback, so the final event
+                # of a run that stops early carries done=True.
+                stop = False
+                if cfg.stop_tol > 0:
+                    mean_loss = float(np.mean(losses["loss"]))
+                    if prev_mean is not None:
+                        rel = abs(prev_mean - mean_loss) / max(abs(prev_mean), 1e-12)
+                        stall = stall + 1 if rel < cfg.stop_tol else 0
+                        stop = stall >= cfg.stop_patience
+                    prev_mean = mean_loss
+
                 if callback is not None:
                     snap = (ema if averaging else image)[0].clamp(0.0, 1.0)
                     callback(
@@ -515,9 +587,14 @@ class StyleTransfer:
                             its_per_sec=n / dt if dt > 0 else float("inf"),
                             get_image=lambda s=snap: s.cpu().numpy(),
                             done=scale.index == plan[-1].index
-                            and done_iters >= scale.iterations,
+                            and (done_iters >= scale.iterations or stop),
+                            get_state=functools.partial(
+                                _resumable_state, image, opt_state, done_iters, scale.index,
+                                ema if averaging else None),
                         )
                     )
+                if stop:
+                    break
 
         result = ema if averaging else image
         if output_dtype == "uint8":
@@ -525,6 +602,9 @@ class StyleTransfer:
         return np.clip(result[0].detach().cpu().numpy(), 0.0, 1.0)
 
     # ---------------------------------------------------------------- misc
+
+    def _state_image(self, array) -> torch.Tensor:
+        return torch.tensor(np.ascontiguousarray(array, np.float32), device=self.device)
 
     def _init_image(self, cfg, content_s, init_image, size):
         """``init="random"`` draws from a ``torch.Generator`` seeded with
@@ -541,3 +621,16 @@ class StyleTransfer:
         if cfg.init == "mean":
             return torch.full((1, h, w, 3), 0.5, dtype=torch.float32, device=self.device)
         raise ValueError(f"unknown init mode {cfg.init!r}")
+
+
+def _resumable_state(image, opt_state, iteration, scale_index, ema) -> dict:
+    """``ProgressEvent.get_state()``: the chunk's state as numpy arrays."""
+    state = {
+        "image": image.detach().cpu().numpy(),
+        "opt_state_leaves": flatten_opt_state(opt_state),
+        "scale_index": np.asarray(scale_index),
+        "iteration": np.asarray(iteration),
+    }
+    if ema is not None:
+        state["ema"] = ema.detach().cpu().numpy()
+    return state

@@ -41,6 +41,22 @@ TOL_GRAM = 1e-3  # fp32 Grams
 TOL_DX = 6e-2  # bf16 input gradients
 TOL_TV = 1e-5  # the fp32 TV loss and its gradient
 TOL_LOSS = 1e-5  # the fp32 content and style losses (scalars)
+# L-BFGS through stylize() (chip_smoke.py, phase lbfgs): configuration 4 on
+# the kernel chain against the same run on the plain fp32 path, measured on
+# an H100 80GB HBM3 (700 W) over 256 -> 512 -> 1024 px, 20 steps a scale in
+# chunks of 10, four runs in three calls. The kernel path's curve had the
+# same bits in every run; the fp32 witness's did not (cuDNN's algorithms
+# vary from run to run, and L-BFGS carries a difference on): two witness
+# runs in one call differed by up to 4.8e-2 at a chunk's end. The kernel
+# path's loss at a chunk's end was within 5.1e-2 of the witness's: limit
+# TOL_LBFGS_CHUNK, twice either spread. Within the first chunk
+# the curves part by 0.120 at the third step in every run (0.0884 against
+# 0.1005): the first step changes the loss by 1e-4 relative, so the gradient
+# difference it stores is mostly bf16 rounding, the second step's scale
+# <du, dw> / <du, du> differs between the paths, and from there the two go
+# down different paths: limit TOL_LBFGS_CURVE on the first chunk's steps.
+TOL_LBFGS_CHUNK = 0.1
+TOL_LBFGS_CURVE = 0.25
 
 PLAIN_RATIO = 1.5
 PLAIN_SLACK = 1e-3

@@ -1,4 +1,4 @@
-"""Image-domain optimizer: Adam with optax semantics (PyTorch port).
+"""Image-domain optimizers: Adam and L-BFGS with optax semantics (PyTorch port).
 
 Counterpart of ``style_transfer_tpu/optim.py``. Adam is written out as
 ``optax.adam`` computes it — ``mu = (1-b1) g + b1 mu``, ``nu = (1-b2) g^2 +
@@ -6,46 +6,109 @@ b2 nu``, bias-corrected ``mu_hat / (sqrt(nu_hat) + eps)`` with eps outside
 the square root, scaled by ``-lr``, no clipping of the image — rather than
 through ``torch.optim.Adam``, so the two packages take the same steps.
 
-``make_chunk_fn`` is a Python loop over steps (the JAX ``lax.scan``); the
-host reads the stacked per-step losses once per chunk.
+L-BFGS is ``optax.lbfgs(memory_size, linesearch=scale_by_zoom_linesearch(
+max_linesearch_steps, tol=linesearch_tol))`` written out, as installed with
+the JAX package (optax 0.2.6): ``optax/_src/alias.py:2591`` ``lbfgs`` is
+``chain(scale_by_lbfgs, scale(-1), linesearch)``; ``transform.py:1573``
+``scale_by_lbfgs`` and ``:1497`` ``_precondition_by_lbfgs`` (the two-loop
+recursion over a ring of ``memory_size`` parameter and gradient
+differences); the line search is :mod:`style_transfer_tpu_torch.linesearch`.
+``torch.optim.LBFGS`` is a different algorithm. Every state is a dataclass
+whose leaves (:func:`state_leaves`) are optax's, in optax's order, so a state
+the JAX package saved resumes here (``utils/ckpt.py``). States are never
+modified in place: an update returns new tensors, so a state kept from an
+earlier step stays valid.
 
-L-BFGS (``optax.lbfgs`` with the zoom line search) is not ported yet: see
-ROADMAP.md, queue 1, "L-BFGS".
+``make_chunk_fn`` is a Python loop over steps (the JAX ``lax.scan``); the
+host reads the stacked per-step losses once per chunk, and an L-BFGS step
+adds one host read per line-search step (``linesearch.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple, Union
 
 import torch
+
+from style_transfer_tpu_torch.linesearch import (
+    ScaleByZoomLinesearch,
+    ScaleByZoomLinesearchState,
+    safe_increment,
+    vdot,
+)
 
 ObjectiveFn = Callable[[torch.Tensor], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerSpec:
-    """Optimizer selection; only ``"adam"`` is ported."""
+    """Optimizer selection, with the JAX ``OptimizerSpec``'s fields."""
 
-    name: str = "adam"
+    name: str = "adam"  # "adam" | "lbfgs"
     learning_rate: float = 0.05
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-8
+    memory_size: int = 10  # L-BFGS history window
+    max_linesearch_steps: int = 16
+    # Absolute epsilon on the zoom line search's Wolfe conditions. The JAX
+    # package measured bf16 VGG gradients at megapixel sizes on its TPU to
+    # carry directional-derivative noise below which the strong-Wolfe
+    # curvature condition can never be met, so the search spent its whole
+    # budget every step; the approximate-Wolfe epsilon absorbs that noise.
+    # It relaxes the accept conditions everywhere: an fp32 run may accept a
+    # step the exact condition would reject near the margin. The port's
+    # measurement on the H100 is in PERF.md. 0.0 = strict Wolfe conditions.
+    linesearch_tol: float = 1e-3
 
-    def build(self) -> "Adam":
+    def build(self) -> Union["Adam", "LBFGS"]:
         if self.name == "adam":
             return Adam(self.learning_rate, self.beta1, self.beta2, self.eps)
         if self.name == "lbfgs":
-            raise NotImplementedError(
-                "L-BFGS is not ported to style_transfer_tpu_torch yet "
-                "(ROADMAP.md, queue 1: L-BFGS)"
-            )
+            return LBFGS(self.memory_size, self.max_linesearch_steps, self.linesearch_tol)
         raise ValueError(f"unknown optimizer {self.name!r} (expected 'adam' or 'lbfgs')")
+
+    @property
+    def needs_value_fn(self) -> bool:
+        """L-BFGS's line search re-evaluates the objective inside the step."""
+        return self.name == "lbfgs"
+
+
+# ------------------------------------------------------------------ states
+
+
+def state_leaves(state) -> List[Union[torch.Tensor, int]]:
+    """The leaves of an optimizer state in optax's flattening order: the
+    dataclass fields in order, nested dataclasses walked in place."""
+    out: List[Union[torch.Tensor, int]] = []
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        out.extend(state_leaves(v) if dataclasses.is_dataclass(v) else [v])
+    return out
+
+
+def replace_leaves(state, leaves):
+    """A state of ``state``'s structure holding ``leaves`` (in the order of
+    :func:`state_leaves`)."""
+    it = iter(leaves)
+
+    def build(s):
+        return dataclasses.replace(s, **{
+            f.name: build(getattr(s, f.name)) if dataclasses.is_dataclass(getattr(s, f.name))
+            else next(it)
+            for f in dataclasses.fields(s)
+        })
+
+    return build(state)
 
 
 @dataclasses.dataclass
 class AdamState:
+    """optax ``ScaleByAdamState`` (``count``, ``mu``, ``nu``; the
+    learning-rate scale's ``EmptyState`` has no leaves). ``count`` is a host
+    integer: the step needs no device value of it."""
+
     count: int
     mu: torch.Tensor
     nu: torch.Tensor
@@ -72,16 +135,159 @@ class Adam:
         return image + step, AdamState(count, mu, nu)
 
 
+@dataclasses.dataclass
+class ScaleByLBFGSState:
+    """optax ``ScaleByLBFGSState``: the iteration (int32), the last
+    parameters and gradient, the rings of their differences ``(m, *shape)``
+    and the weights ``1 / <du, dw>`` ``(m,)``."""
+
+    count: torch.Tensor
+    params: torch.Tensor
+    updates: torch.Tensor
+    diff_params_memory: torch.Tensor
+    diff_updates_memory: torch.Tensor
+    weights_memory: torch.Tensor
+
+
+@dataclasses.dataclass
+class LBFGSState:
+    """The state of ``chain(scale_by_lbfgs, scale(-1), linesearch)``: twelve
+    leaves, optax's (``scale(-1)`` keeps none)."""
+
+    lbfgs: ScaleByLBFGSState
+    linesearch: ScaleByZoomLinesearchState
+
+
+class LBFGS:
+    """``optax.lbfgs`` with the zoom line search, on one tensor.
+
+    ``update(grad, state, image, *, value, value_fn)`` returns ``(updates,
+    state)`` as optax does; the next iterate is ``image + updates``.
+    ``value_fn(x)`` returns the objective's value and gradient at ``x``; the
+    line search calls it once per trial, ``1 + k`` evaluations a step with
+    the caller's own.
+    """
+
+    def __init__(self, memory_size: int = 10, max_linesearch_steps: int = 16,
+                 linesearch_tol: float = 1e-3):
+        if memory_size < 1:
+            raise ValueError("memory_size must be >= 1")
+        self.memory_size = memory_size
+        self.linesearch = ScaleByZoomLinesearch(max_linesearch_steps, tol=linesearch_tol)
+
+    def init(self, image: torch.Tensor) -> LBFGSState:
+        dev, m = image.device, self.memory_size
+        stacked = torch.zeros((m, *image.shape), dtype=image.dtype, device=dev)
+        return LBFGSState(
+            ScaleByLBFGSState(
+                count=torch.zeros((), dtype=torch.int32, device=dev),
+                params=torch.zeros_like(image),
+                updates=torch.zeros_like(image),
+                diff_params_memory=stacked,
+                diff_updates_memory=stacked,
+                weights_memory=torch.zeros(m, dtype=torch.float32, device=dev),
+            ),
+            self.linesearch.init(image),
+        )
+
+    @torch.no_grad()
+    def _scale_by_lbfgs(self, updates: torch.Tensor, state: ScaleByLBFGSState,
+                        params: torch.Tensor):
+        """optax ``scale_by_lbfgs`` ``update_fn``: refresh the memory with the
+        newest differences, then precondition ``updates``. The ring index
+        stays on the device (``index_select`` / ``index_copy``)."""
+        m = self.memory_size
+        count = state.count
+        memory_idx = torch.remainder(count, m)
+        prev_memory_idx = torch.remainder(count - 1, m).reshape(1).long()
+        started = count > 0
+
+        # 1. the memory, given fresh params and gradient (zero at count 0)
+        diff_params = params - state.params
+        diff_updates = updates - state.updates
+        vdot_diff = vdot(diff_updates, diff_params)
+        weight = torch.where(vdot_diff == 0.0, 0.0, 1.0 / vdot_diff)
+        diff_params = torch.where(started, diff_params, 0.0)
+        diff_updates = torch.where(started, diff_updates, 0.0)
+        weight = torch.where(started, weight, 0.0)
+        diff_params_memory = torch.index_copy(state.diff_params_memory, 0, prev_memory_idx,
+                                              diff_params[None])
+        diff_updates_memory = torch.index_copy(state.diff_updates_memory, 0, prev_memory_idx,
+                                               diff_updates[None])
+        weights_memory = torch.index_copy(state.weights_memory, 0, prev_memory_idx, weight[None])
+
+        # 2. gamma_k, the scale of the identity; at the first step a capped
+        # reciprocal of the gradient norm. The numerator is optax's second
+        # vdot of the same (zeroed) differences.
+        numerator = torch.where(started, vdot_diff, 0.0)
+        denominator = vdot(diff_updates, diff_updates)
+        identity_scale = torch.where(denominator > 0.0, numerator / denominator, 1.0)
+        update_norm = torch.sqrt(vdot(updates, updates))
+        capped_inv_norm = torch.clamp_max(1.0 / update_norm, 1.0)
+        identity_scale = torch.where(started, identity_scale, capped_inv_norm)
+
+        # 3. the two-loop recursion, oldest to newest ring slot
+        indices = torch.remainder(
+            memory_idx + torch.arange(m, dtype=torch.int32, device=params.device), m).long()
+        vec, alphas = updates, [None] * m
+        for j in reversed(range(m)):
+            idx = indices[j:j + 1]
+            dwi = diff_params_memory.index_select(0, idx)[0]
+            dui = diff_updates_memory.index_select(0, idx)[0]
+            alphas[j] = weights_memory.index_select(0, idx)[0] * vdot(dwi, vec)
+            vec = vec + (-alphas[j]) * dui
+        vec = identity_scale * vec
+        for j in range(m):
+            idx = indices[j:j + 1]
+            dwi = diff_params_memory.index_select(0, idx)[0]
+            dui = diff_updates_memory.index_select(0, idx)[0]
+            beta = weights_memory.index_select(0, idx)[0] * vdot(dui, vec)
+            vec = vec + (alphas[j] - beta) * dwi
+
+        return vec, ScaleByLBFGSState(safe_increment(count), params, updates, diff_params_memory,
+                                      diff_updates_memory, weights_memory)
+
+    @torch.no_grad()
+    def update(self, grad: torch.Tensor, state: LBFGSState, image: torch.Tensor, *,
+               value: torch.Tensor, value_fn):
+        """Returns ``(updates, new state)``; inputs are not modified."""
+        direction, lbfgs_state = self._scale_by_lbfgs(grad, state.lbfgs, image)
+        updates, ls_state = self.linesearch.update(
+            -1.0 * direction, state.linesearch, image, value=value, grad=grad,
+            value_fn=value_fn,
+        )
+        return updates, LBFGSState(lbfgs_state, ls_state)
+
+
 def make_step_fn(objective: ObjectiveFn, spec: OptimizerSpec):
     """``step(image, state) -> (image, state, aux)``: value and gradient of
-    ``objective`` by autograd, then one optimizer update."""
+    ``objective`` by autograd, then one optimizer update. For L-BFGS the
+    update's line search evaluates the objective's value and gradient at
+    each trial point; as in the JAX step, the next step evaluates its
+    starting point again, although the line search ended there."""
     optimizer = spec.build()
 
+    def value_and_grad(image):
+        with torch.enable_grad():
+            x = image.detach().requires_grad_(True)
+            loss, aux = objective(x)
+            (grad,) = torch.autograd.grad(loss, x)
+        # autograd hands back the gradient in the layout of the convolutions
+        # (channels first under an NHWC view); contiguous, every state tensor
+        # has one layout, so a state restored from disk sums as the live one
+        return loss.detach(), grad.contiguous(), aux
+
+    def value_fn(image):
+        loss, grad, _ = value_and_grad(image)
+        return loss, grad
+
     def step(image, state):
-        x = image.detach().requires_grad_(True)
-        loss, aux = objective(x)
-        (grad,) = torch.autograd.grad(loss, x)
-        image, state = optimizer.update(grad, state, image)
+        loss, grad, aux = value_and_grad(image)
+        if spec.needs_value_fn:
+            updates, state = optimizer.update(grad, state, image, value=loss, value_fn=value_fn)
+            image = image + updates
+        else:
+            image, state = optimizer.update(grad, state, image)
         return image, state, {k: v.detach() for k, v in aux.items()}
 
     return step, optimizer

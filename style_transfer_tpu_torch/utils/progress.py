@@ -1,9 +1,9 @@
 """Progress events, stdout reporting and iteration-rate metrics (PyTorch port).
 
 Counterpart of ``style_transfer_tpu/utils/progress.py`` (``ProgressEvent``,
-``Callback``, ``Printer``, ``MetricsRecorder``); the optimize loop emits one
-:class:`ProgressEvent` per chunk. Left out: ``fanout`` and the resumable
-state (``get_state`` is always None until checkpoints are ported), and
+``Callback``, ``Printer``, ``MetricsRecorder``, ``fanout``); the optimize
+loop emits one :class:`ProgressEvent` per chunk, whose ``get_state`` returns
+the resumable state of that chunk (``utils/ckpt.py``). Left out:
 ``MetricsRecorder.dump`` (the CLI's ``--metrics-out``).
 """
 
@@ -33,6 +33,9 @@ class ProgressEvent:
     # Fetches the current image as float RGB (H, W, 3) in [0, 1].
     get_image: Callable[[], np.ndarray]
     done: bool = False  # last event of the whole run
+    # The resumable state at this chunk as numpy arrays: {"image",
+    # "opt_state_leaves", "scale_index", "iteration"[, "ema"]}, the input of
+    # stylize(resume_state=...) (utils/ckpt.py).
     get_state: Optional[Callable[[], dict]] = None
 
     @property
@@ -100,3 +103,14 @@ class MetricsRecorder:
             "per_scale_chunks_counted": {k: len(v) for k, v in steady.items()},
             "final_loss": self.records[-1]["loss"] if self.records else None,
         }
+
+
+def fanout(*callbacks: Optional[Callback]) -> Callback:
+    """Combine callbacks; Nones are skipped."""
+    cbs = [c for c in callbacks if c is not None]
+
+    def cb(ev: ProgressEvent) -> None:
+        for c in cbs:
+            c(ev)
+
+    return cb

@@ -204,8 +204,8 @@ def test_bad_arguments_raise(packages, images):
         pst.stylize(content, style, StylizeConfig(**kw), output_dtype="float16")
     with pytest.raises(ValueError, match="at least one style"):
         pst.stylize(content, [], StylizeConfig(**kw))
-    with pytest.raises(NotImplementedError, match="L-BFGS"):
-        pst.stylize(content, style, StylizeConfig(optimizer=OptimizerSpec("lbfgs"), **kw))
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        pst.stylize(content, style, StylizeConfig(optimizer=OptimizerSpec("sgd"), **kw))
     with pytest.warns(UserWarning, match="rounded to"):
         pst.stylize(content, style, StylizeConfig(size=(17, 16), min_scale=16, iterations=(1,),
                                                   content_layers=("conv1_2",),

@@ -23,6 +23,7 @@ REPO = Path(__file__).resolve().parents[1]
 MODULES = [
     "style_transfer_tpu_torch",
     "style_transfer_tpu_torch.api",
+    "style_transfer_tpu_torch.linesearch",
     "style_transfer_tpu_torch.optim",
     "style_transfer_tpu_torch.schedule",
     "style_transfer_tpu_torch.models.vgg",
@@ -39,6 +40,7 @@ MODULES = [
     "style_transfer_tpu_torch.ops.kernels.epilogue",
     "style_transfer_tpu_torch.ops.kernels.gram",
     "style_transfer_tpu_torch.ops.kernels.tolerances",
+    "style_transfer_tpu_torch.utils.ckpt",
     "style_transfer_tpu_torch.utils.imgio",
     "style_transfer_tpu_torch.utils.progress",
 ]

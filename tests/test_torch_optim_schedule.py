@@ -73,8 +73,16 @@ def test_step_and_chunk_fns_match_jax_step():
 
 
 def test_lbfgs_names_the_roadmap_item_and_unknown_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OptimizerSpec("lbfgs").build()
+    """L-BFGS, the ROADMAP item this test once named as missing, builds with
+    the JAX spec's defaults; an unknown name still raises."""
+    spec = OptimizerSpec("lbfgs")
+    assert (spec.memory_size, spec.max_linesearch_steps, spec.linesearch_tol) == \
+        (JSpec("lbfgs").memory_size, JSpec("lbfgs").max_linesearch_steps,
+         JSpec("lbfgs").linesearch_tol) == (10, 16, 1e-3)
+    assert spec.needs_value_fn and not OptimizerSpec().needs_value_fn
+    opt = spec.build()
+    state = opt.init(torch.zeros(2, 3))
+    assert opt.memory_size == 10 and tuple(state.lbfgs.diff_params_memory.shape) == (10, 2, 3)
     with pytest.raises(ValueError, match="unknown optimizer"):
         OptimizerSpec("sgd").build()
 
