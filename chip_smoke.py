@@ -109,10 +109,26 @@ Phases, one JSON object per line on stdout:
    stop at 256 px (the last event must carry ``done``), and a resume at
    1024 px from the first chunk's ``get_state()``, which must end on the
    uninterrupted run's bits.
+13. cli — the command line, ``style_transfer_tpu_torch.cli.main`` in this
+   process on seeded PNGs with ``--random-weights``: the five shipped
+   configurations (``configs/*.toml``) at their own sizes with ``-i
+   --steps``, configuration 5 on a 3840x2160 content (output shape, finite
+   ``--metrics-out`` losses, falling by chunk peaks, the kernels of each
+   path launched in each scale and no opt-in kernel; steady it/s, peak
+   memory and launches per scale); ``--remat on`` against ``off`` at 1024
+   px (bit-equal PNG and losses, each chain kernel's forward twice) and at
+   4096x4096 on the chain and on the plain path, the stored path's peaks at
+   2048^2 and 4096^2 on both with the linear fit behind
+   ``api.REMAT_AUTO_PIXELS*``;
+   a ``--resume`` from the middle of the last scale (bit-equal);
+   ``--profile-dir`` (the trace names the chain's kernels),
+   ``--fused-block1`` and ``--unfused`` (which kernels launch); ``--web``
+   where aiohttp imports; ``python -m style_transfer_tpu_torch`` in a
+   subprocess.
 
 Each stylize phase, each arm of the objective phase and the lbfgs phase's
-configuration-4 run set every launch count to 0 just before they run and
-read them all just after. Then a
+configuration-4 run and each ``cli.main`` run of the cli phase set every
+launch count to 0 just before they run and read them all just after. Then a
 ``{"kernels": [...]}`` summary line (eleven kernels, each with the launches
 of the phase whose path runs it, forward and backward kernels alike, its
 error, its time, the plain version's, the library call's and its bound, for
@@ -1645,8 +1661,493 @@ def lbfgs_check(torch, params, mean, std, steps):
     return launches
 
 
+# The cli phase: the kernels each shipped configuration's path must launch,
+# and those it must not, read from the dispatch (api._chain_features,
+# ops/kernels/dispatch.py): every configuration runs the default chain on
+# even extents, configuration 3 requests no conv5_1 (no conv_gram), and
+# configuration 5's 3840-wide scale (effective width >= 2048) runs every
+# two-conv segment as singles while its conv5_1 (effective width 1920) stays
+# on conv_gram; its smaller 16:9 scales reach odd pool boundaries and run
+# the rest of the VGG plain, as the reference does off its TPU grid, and
+# ``gram_matrix`` sends the Grams of those materialized activations to the
+# Gram kernel (``pallas_gram``, every width in ``gram.KERNEL_CHANNELS``).
+CLI_CHAIN = ("block1_packed", "conv_pair", "conv_gram", "tv_loss")
+CLI_OPT_IN = ("block1_full", "block1_tail", "pallas_gram", "content_loss", "style_loss")
+CLI_CONFIGS = {
+    "config1_gatys_512_adam": ((512, 512), 1, CLI_CHAIN, ("conv_single", "gram_tail")),
+    "config2_multiscale_1024": ((1024, 1024), 1, CLI_CHAIN, ("conv_single", "gram_tail")),
+    "config3_multistyle_blend": ((512, 512), 2, ("block1_packed", "conv_pair", "tv_loss"),
+                                 ("conv_gram", "conv_single", "gram_tail")),
+    "config4_lbfgs_tv_1024": ((1024, 1024), 1, CLI_CHAIN, ("conv_single", "gram_tail")),
+    "config5_4k_sharded": ((2160, 3840), 1, CLI_CHAIN + ("conv_single", "pallas_gram"),
+                           ("gram_tail",)),
+}
+#: Share of the card's 80 GB at which the auto-remat thresholds are placed
+#: (api.REMAT_AUTO_PIXELS*): the rest is left to the caching allocator's
+#: fragmentation and the CUDA context.
+REMAT_SHARE = 0.75
+CARD_BYTES = 80e9
+
+
+class _ObservedStylize:
+    """Wraps ``StyleTransfer.stylize`` so that each progress event of a run
+    made through ``cli.main`` also records, before the CLI's own sinks see
+    it, the per-step losses, the launch counts so far and the peak device
+    memory of its scale (reset when a scale ends): the per-scale numbers
+    the CLI's ``--metrics-out`` does not carry."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from style_transfer_tpu_torch import api
+
+        self.api, self.real = api, api.StyleTransfer.stylize
+        observer = self
+
+        def stylize(st, content, styles, config=None, *, callback=None, **kw):
+            counters = _counters()
+
+            def observe(ev):
+                torch = observer.torch
+                k = ev.scale_index
+                observer.curves.setdefault(k, []).extend(float(v) for v in ev.losses["loss"])
+                observer.sizes[k] = list(ev.size)
+                observer.cumulative[k] = {n: c.n for n, c in counters.items()}
+                observer.peak[k] = max(observer.peak.get(k, 0.0),
+                                       torch.cuda.max_memory_allocated() / 2**20)
+                if ev.iteration == ev.total_iterations:  # the next scale's peak starts afresh
+                    torch.cuda.reset_peak_memory_stats()
+                callback(ev)
+
+            return observer.real(st, content, styles, config, callback=observe, **kw)
+
+        self.curves, self.sizes, self.cumulative, self.peak = {}, {}, {}, {}
+        api.StyleTransfer.stylize = stylize
+        return self
+
+    def __exit__(self, *exc):
+        self.api.StyleTransfer.stylize = self.real
+
+    def per_scale_launches(self):
+        out, before = {}, {}
+        for k in sorted(self.cumulative):
+            out[k] = {n: v - before.get(n, 0) for n, v in self.cumulative[k].items()}
+            before = self.cumulative[k]
+        return out
+
+
+class _ForwardSpies:
+    """Counts each chain kernel wrapper's calls made with autograd on: the
+    optimizer's forwards and, under remat, the checkpoints' recomputes
+    (captures run under ``no_grad``)."""
+
+    WRAPPERS = (("block1", "block1_packed"), ("block2", "block2_fused"),
+                ("conv_pair", "pair_gram"), ("conv_pair", "pair_pool"),
+                ("conv_gram", "conv_gram"), ("conv_single", "gram_tail"))
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def _spy(self, name, fn):
+        def wrapped(*args):
+            if self.torch.is_grad_enabled():
+                self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*args)
+        return wrapped
+
+    def __enter__(self):
+        import importlib
+
+        self.calls, self.saved = {}, []
+        for mod_name, attr in self.WRAPPERS:
+            mod = importlib.import_module(f"style_transfer_tpu_torch.ops.kernels.{mod_name}")
+            self.saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, self._spy(attr, getattr(mod, attr)))
+        cs = importlib.import_module("style_transfer_tpu_torch.ops.kernels.conv_single")
+        make = cs.make_pair_of_singles
+        self.saved.append((cs, "make_pair_of_singles", make))
+        cs.make_pair_of_singles = lambda **kw: self._spy(
+            f"singles_pool{int(kw['pool'])}_gram{int(kw['gram'])}", make(**kw))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self.saved):
+            setattr(mod, attr, fn)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cli_run(torch, argv, metrics_path=None, spies=False):
+    """One ``style_transfer_tpu_torch.cli.main(argv)`` in this process, with
+    every launch count set to 0 just before it and read just after. Returns
+    the rc, seconds, the launches (all and per scale), per-scale peak MiB,
+    per-step losses and sizes, the ``--metrics-out`` file, and with
+    ``spies`` the chain wrappers' forward calls."""
+    import contextlib
+
+    from style_transfer_tpu_torch import cli
+
+    if metrics_path is not None:
+        argv = argv + ["--metrics-out", metrics_path]
+    counters = _counters()
+    for c in counters.values():
+        c.n = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _ObservedStylize(torch) as obs, \
+            (_ForwardSpies(torch) if spies else contextlib.nullcontext()) as spy:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    run = {"rc": rc, "seconds": seconds, "launches": {k: c.n for k, c in counters.items()},
+           "launches_per_scale": obs.per_scale_launches(), "peak_mib": obs.peak,
+           "curves": obs.curves, "sizes": obs.sizes,
+           "forward_calls": dict(spy.calls) if spies else None}
+    if rc != 0:
+        raise AssertionError(f"cli: main({argv}) returned {rc}")
+    if metrics_path is not None:
+        with open(metrics_path) as f:
+            run["metrics"] = json.load(f)
+    return run
+
+
+def _falls_by_chunk_peaks(curve, chunk):
+    return max(curve[-chunk:]) < max(curve[:chunk])
+
+
+def _png(path):
+    import numpy as np
+
+    from style_transfer_tpu_torch.utils import imgio
+
+    return imgio.load_image(path, dtype=np.uint8)
+
+
+class _CliInputs:
+    """Seeded PNG inputs in a temporary directory, and the flags every run
+    of the cli phase shares."""
+
+    def __init__(self, tmp, sizes):
+        import numpy as np
+
+        from style_transfer_tpu_torch.utils import imgio
+
+        r = np.random.RandomState(13)
+        self.tmp, self.content = tmp, {}
+        for hw in sorted(sizes):
+            self.content[hw] = f"{tmp}/content_{hw[0]}x{hw[1]}.png"
+            imgio.save_image(r.rand(*hw, 3).astype(np.float32), self.content[hw])
+        self.styles = [f"{tmp}/style{i}.png" for i in range(2)]
+        for path in self.styles:
+            imgio.save_image(r.rand(512, 512, 3).astype(np.float32), path)
+        self.common = ["--random-weights", "--chunk-size", "10", "--print-every", "100000"]
+
+    @staticmethod
+    def conf(name):
+        from pathlib import Path
+
+        return ["--config", str(Path(__file__).resolve().parent / "configs" / f"{name}.toml")]
+
+
+def cli_configs(torch, io, steps):
+    """The five shipped configurations through ``cli.main`` (see
+    :func:`cli_check`, part 1)."""
+    import numpy as np
+
+    chunk = 10
+    for name, (hw, n_styles, required, absent) in CLI_CONFIGS.items():
+        out = f"{io.tmp}/{name}.png"
+        run = _cli_run(torch, [io.content[hw], *io.styles[:n_styles], "-o", out, "-i", str(steps)]
+                       + io.conf(name) + io.common, metrics_path=f"{io.tmp}/{name}.json")
+        img = _png(out)
+        losses = [rec["loss"] for rec in run["metrics"]["records"]]
+        emit({"phase": "cli", "part": name, "sizes": run["sizes"], "seconds": run["seconds"],
+              "its_per_sec_steady": run["metrics"]["summary"]["per_scale_its_per_sec"],
+              "peak_mib": run["peak_mib"], "launches": run["launches"],
+              "launches_per_scale": run["launches_per_scale"], "metrics_losses": losses,
+              "out_shape": list(img.shape)})
+        if img.shape != (*hw, 3):
+            raise AssertionError(f"cli {name}: output shape {img.shape}, expected {hw}")
+        if not losses or not np.isfinite(losses).all():
+            raise AssertionError(f"cli {name}: --metrics-out losses not finite: {losses}")
+        for k, v in run["curves"].items():
+            if not np.isfinite(v).all() or not _falls_by_chunk_peaks(v, chunk):
+                raise AssertionError(f"cli {name} scale {k}: loss not falling: {v}")
+        missing = [k for k in required if run["launches"][k] == 0]
+        stray = [k for k in absent + CLI_OPT_IN if k not in required and run["launches"][k] != 0]
+        if missing or stray:
+            raise AssertionError(f"cli {name}: never launched {missing}, stray {stray}")
+        if name != "config5_4k_sharded":
+            for k, counts in run["launches_per_scale"].items():
+                if any(counts[n] == 0 for n in required):
+                    raise AssertionError(f"cli {name}: scale {k} missed a kernel: {counts}")
+        else:
+            last = run["launches_per_scale"][max(run["launches_per_scale"])]
+            if last["conv_pair"] != 0 or last["conv_single"] == 0:
+                raise AssertionError(f"cli {name}: the 3840 scale is not on singles: {last}")
+
+
+def cli_remat(torch, io, steps, sides=(2048, 4096)):
+    """``--remat on`` against ``off`` (see :func:`cli_check`, part 2)."""
+    import numpy as np
+
+    from style_transfer_tpu_torch import api
+
+    c1024 = io.content[(1024, 1024)]
+    base = [c1024, io.styles[0], "-i", str(steps)] + io.conf("config2_multiscale_1024") + io.common
+    runs = {}
+    for mode in ("on", "off"):
+        out = f"{io.tmp}/remat_{mode}.png"
+        runs[mode] = _cli_run(torch, base + ["--remat", mode, "-o", out],
+                              metrics_path=f"{io.tmp}/remat_{mode}.json", spies=True)
+        runs[mode]["png"] = _png(out)
+    on, off = runs["on"], runs["off"]
+    equal_png = bool(np.array_equal(on["png"], off["png"]))
+    equal_losses = bool(on["metrics"]["records"]
+                        and [x["loss"] for x in on["metrics"]["records"]]
+                        == [x["loss"] for x in off["metrics"]["records"]]
+                        and on["curves"] == off["curves"])
+    calls = {k: (off["forward_calls"].get(k), v) for k, v in on["forward_calls"].items()}
+    emit({"phase": "cli", "part": "remat_1024", "png_bit_equal": equal_png,
+          "losses_bit_equal": equal_losses, "forward_calls_off_on": calls,
+          "launches_on": on["launches"], "launches_off": off["launches"],
+          "peak_mib_on": on["peak_mib"], "peak_mib_off": off["peak_mib"],
+          "its_per_sec_on": on["metrics"]["summary"]["per_scale_its_per_sec"],
+          "its_per_sec_off": off["metrics"]["summary"]["per_scale_its_per_sec"],
+          "seconds_on": on["seconds"], "seconds_off": off["seconds"]})
+    if not (equal_png and equal_losses):
+        raise AssertionError("cli: --remat on and off are not bit-equal at 1024 px")
+    if not calls or set(on["forward_calls"]) != set(off["forward_calls"]) or \
+            any(v != 2 * o for o, v in calls.values()):
+        raise AssertionError(f"cli: remat did not run each forward twice: {calls}")
+
+    # the stored path's peaks at sides[0]^2 and sides[1]^2, and sides[1]^2 under remat
+    peaks = {}
+    for px in sides:
+        for route, flags in (("chain", []), ("plain", ["--unfused"])):
+            for mode in (("off", "on") if px == sides[1] else ("off",)):
+                out = f"{io.tmp}/big_{route}_{px}_{mode}.bmp"  # no time spent compressing
+                # two chunks of 5: the second is the steady one
+                run = _cli_run(torch, [c1024, io.styles[0], "--size", str(px), "--min-scale",
+                                       str(px), "-i", "10", "--remat", mode, "-o", out]
+                               + io.conf("config2_multiscale_1024") + io.common
+                               + ["--chunk-size", "5"] + flags,
+                               metrics_path=f"{io.tmp}/big.json", spies=route == "chain")
+                peaks[(route, px, mode)] = run["peak_mib"][0]
+                emit({"phase": "cli", "part": f"remat_{px}", "route": route, "remat": mode,
+                      "peak_mib": run["peak_mib"][0], "seconds": run["seconds"],
+                      "its_per_sec": run["metrics"]["summary"]["per_scale_its_per_sec"],
+                      "launches": run["launches"], "forward_calls": run["forward_calls"],
+                      "loss_per_step": run["curves"][0]})
+                if route == "chain" and px == sides[1] and run["launches"]["conv_single"] == 0:
+                    raise AssertionError(f"cli: the {px}^2 chain did not run the singles")
+    fit = {}
+    for route, current in (("chain", api.REMAT_AUTO_PIXELS_FUSED),
+                           ("plain", api.REMAT_AUTO_PIXELS)):
+        lo, hi = peaks[(route, sides[0], "off")], peaks[(route, sides[1], "off")]
+        slope = (hi - lo) / (sides[1] ** 2 - sides[0] ** 2)  # MiB per pixel
+        icpt = lo - slope * sides[0] ** 2
+        px = (REMAT_SHARE * CARD_BYTES / 2**20 - icpt) / slope
+        fit[route] = {"peak_mib": [lo, hi], "mib_per_mpx": slope * 1e6, "intercept_mib": icpt,
+                      "threshold_px": px, "threshold_side": px ** 0.5, "constant_px": current}
+    emit({"phase": "cli", "part": "remat_fit", "sides": list(sides),
+          "share_of_80GB": REMAT_SHARE, "fit": fit,
+          "remat_on_peak_mib": {route: peaks[(route, sides[1], "on")]
+                                for route in ("chain", "plain")}})
+
+
+def cli_resume(torch, io, steps):
+    """``--resume`` from the middle of the last scale (see :func:`cli_check`,
+    part 3)."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    base = ([io.content[(1024, 1024)], io.styles[0], "-i", str(steps)]
+            + io.conf("config2_multiscale_1024") + io.common)
+    ck, full = f"{io.tmp}/ck", f"{io.tmp}/resume_full.png"
+    _cli_run(torch, base + ["-o", full, "--checkpoint-dir", ck, "--checkpoint-every",
+                            str(max(1, steps // 2))])
+    saved = sorted(int(p.split("_")[1]) for p in os.listdir(ck) if p.startswith("step_"))
+    shutil.rmtree(f"{ck}/step_{saved[-1]}")  # the latest is now half a scale before the end
+    resumed = f"{io.tmp}/resume_resumed.png"
+    run = _cli_run(torch, base + ["-o", resumed, "--checkpoint-dir", ck, "--resume"])
+    equal = bool(np.array_equal(_png(full), _png(resumed)))
+    emit({"phase": "cli", "part": "resume", "checkpoints": saved, "resumed_from_step": saved[-2],
+          "resumed_sizes": run["sizes"], "resumed_steps": sum(map(len, run["curves"].values())),
+          "bit_equal": equal})
+    if not equal:
+        raise AssertionError("cli: the resumed run does not end on the uninterrupted run's bits")
+
+
+def cli_profile(torch, io):
+    """``--profile-dir`` (see :func:`cli_check`, part 4)."""
+    import os
+
+    small = [io.content[(512, 512)], io.styles[0], "-i", "4", "--size", "256", "--min-scale",
+             "256"] + io.common
+    for attempt in range(3):  # a trace now and then comes back without device events
+        prof = f"{io.tmp}/prof{attempt}"
+        _cli_run(torch, small + ["--profile-dir", prof, "-o", f"{io.tmp}/prof.png"])
+        traces = [p for p in os.listdir(prof) if p.endswith(".pt.trace.json")]
+        with open(f"{prof}/{traces[0]}") as f:
+            kernels = sorted({e["name"] for e in json.load(f)["traceEvents"]
+                              if e.get("cat") == "kernel"})
+        if kernels:
+            break
+    named = {k: any(k in n for n in kernels)
+             for k in ("conv3x3_kernel", "gram_partial_kernel", "gram_fs_kernel", "tv_kernel")}
+    emit({"phase": "cli", "part": "profile", "traces": traces, "attempts": attempt + 1,
+          "kernel_names": len(kernels), "names_chain_kernels": named})
+    if len(traces) != 1 or not all(named.values()):
+        raise AssertionError(f"cli: the trace does not name the chain's kernels: {named}")
+
+
+def cli_routes(torch, io, steps):
+    """``--fused-block1`` and ``--unfused`` (see :func:`cli_check`, part 4)."""
+    for part, flags, required, absent in (
+            ("fused_block1", ["--fused-block1"], ("block1_full",),
+             ("block1_packed", "conv_pair", "conv_single", "gram_tail", "conv_gram")),
+            ("unfused", ["--unfused"], (), tuple(COUNTERS))):
+        run = _cli_run(torch, [io.content[(512, 512)], io.styles[0], "-i", str(steps), "-o",
+                               f"{io.tmp}/{part}.png"] + io.conf("config1_gatys_512_adam")
+                       + io.common + flags)
+        emit({"phase": "cli", "part": part, "launches": run["launches"],
+              "seconds": run["seconds"], "peak_mib": run["peak_mib"]})
+        if any(run["launches"][k] == 0 for k in required) or \
+                any(run["launches"][k] != 0 for k in absent):
+            raise AssertionError(f"cli {part}: wrong kernels launched: {run['launches']}")
+
+
+def cli_web(torch, io):
+    """``--web`` during one run, where aiohttp imports: a client thread
+    fetches ``/`` and polls ``/image`` until a JPEG frame arrives while
+    ``cli.main`` runs (see :func:`cli_check`, part 5)."""
+    import importlib.util
+    import threading
+    import urllib.error
+    import urllib.request
+
+    if importlib.util.find_spec("aiohttp") is None:
+        emit({"phase": "cli", "part": "web", "run": False,
+              "reason": "aiohttp is not installed here: the --web check was not run"})
+        return
+    port = _free_port()
+    got = {}
+
+    def client():
+        base = f"http://127.0.0.1:{port}"
+        deadline = time.time() + 120
+        while time.time() < deadline and "image" not in got:
+            try:
+                if "index" not in got:
+                    with urllib.request.urlopen(base + "/", timeout=5) as r:
+                        got["index"] = (r.status, "WebSocket" in r.read().decode())
+                with urllib.request.urlopen(base + "/image", timeout=5) as r:
+                    got["image"] = r.read()[:2] == b"\xff\xd8"
+            except (urllib.error.URLError, ConnectionError):
+                time.sleep(0.05)  # not serving yet, or no frame yet (404)
+
+    thread = threading.Thread(target=client, daemon=True)
+    thread.start()
+    run = _cli_run(torch, [io.content[(512, 512)], io.styles[0], "-i", "200", "--size", "256",
+                           "--min-scale", "256", "--web", "--port", str(port), "-o",
+                           f"{io.tmp}/web.png"] + io.common)
+    thread.join(timeout=130)
+    emit({"phase": "cli", "part": "web", "run": True, "got": got, "seconds": run["seconds"]})
+    if thread.is_alive() or got.get("index") != (200, True) or got.get("image") is not True:
+        raise AssertionError(f"cli: --web served {got} during the run")
+
+
+def cli_python_m(io):
+    """``python -m style_transfer_tpu_torch`` in a subprocess (see
+    :func:`cli_check`, part 6)."""
+    import os
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
+    pm = [sys.executable, "-m", "style_transfer_tpu_torch"]
+    t0 = time.perf_counter()
+    version = subprocess.run(pm + ["--version"], cwd=repo, env=env, capture_output=True,
+                             text=True, timeout=300, check=True).stdout.strip()
+    layers = subprocess.run(pm + ["--list-layers"], cwd=repo, env=env, capture_output=True,
+                            text=True, timeout=300, check=True).stdout
+    out = f"{io.tmp}/dash_m.png"
+    proc = subprocess.run(pm + [io.content[(512, 512)], io.styles[0], "-o", out, "-i", "4"]
+                          + io.conf("config1_gatys_512_adam") + io.common, cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=600)
+    shape = list(_png(out).shape) if proc.returncode == 0 else None
+    emit({"phase": "cli", "part": "python_m", "version": version,
+          "list_layers": layers.splitlines(), "run_rc": proc.returncode, "run_out_shape": shape,
+          "seconds": time.perf_counter() - t0})
+    if proc.returncode != 0:
+        raise AssertionError(f"cli: the python -m run failed: {proc.stderr[-2000:]}")
+    if not version.startswith("style_transfer_tpu_torch ") or "vgg19: conv1_1" not in layers \
+            or shape != [512, 512, 3]:
+        raise AssertionError("cli: python -m printed or wrote the wrong thing")
+
+
+def cli_check(torch, steps):
+    """Phase 13: the command line, ``style_transfer_tpu_torch.cli.main`` in
+    this process (so the launch counts can be set to 0 before each run and
+    read after it), on seeded PNGs with ``--random-weights`` and chunks of
+    10:
+
+    1. configurations 1-5 (``configs/*.toml``) at their own sizes, ``-i
+       steps`` (CLI flags override the TOML): configurations 1-4 on a square
+       content, 3 with two styles, 5 on a 16:9 content 3840 px wide; each
+       exits 0 with an output PNG of the expected shape and a
+       ``--metrics-out`` file of finite losses, every scale falls by chunk
+       peaks, its path's kernels launch (in every scale for 1-4) and no
+       opt-in kernel does; the steady it/s and peak memory per scale, the
+       launches per scale and the wall seconds are printed;
+    2. remat: configuration 2 at 1024 px with ``--remat on`` and ``off``:
+       the output PNG and every loss record bit-equal, each chain kernel
+       wrapper's forward called twice as often under remat; then one scale
+       of 10 steps at 4096x4096 both ways, on the chain (singles) and on the
+       plain path (``--unfused``), and the stored path's peaks at 2048^2 and
+       4096^2 on both, the linear fit in pixels and where it reaches
+       ``REMAT_SHARE`` of the card's 80 GB (the derivation of
+       ``api.REMAT_AUTO_PIXELS*``);
+    3. resume: configuration 2 with ``--checkpoint-dir``, the last
+       checkpoint removed so that the latest is in the middle of the last
+       scale, ``--resume``: the output PNG equal to the uninterrupted run's;
+    4. ``--profile-dir``: the trace exists and names the chain's kernels;
+       ``--fused-block1`` launches ``block1_full`` and no chain kernel;
+       ``--unfused`` launches no kernel of the port;
+    5. ``--web`` where aiohttp imports (else a line says it was not run);
+    6. ``python -m style_transfer_tpu_torch`` in a subprocess: ``--version``,
+       ``--list-layers`` and a short configuration-1 run."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="cli_phase_")
+    try:
+        io = _CliInputs(tmp, {hw for hw, *_ in CLI_CONFIGS.values()})
+        cli_configs(torch, io, steps)
+        cli_remat(torch, io, steps)
+        cli_resume(torch, io, steps)
+        cli_profile(torch, io)
+        cli_routes(torch, io, steps)
+        cli_web(torch, io)
+        cli_python_m(io)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 PHASES = ("kernel", "segment_forms", "parity", "stylize", "large", "fused_block1", "objective",
-          "profile", "ladder", "lbfgs")
+          "profile", "ladder", "lbfgs", "cli")
 
 
 def main(argv=None) -> int:
@@ -1663,7 +2164,8 @@ def main(argv=None) -> int:
                              "(and the edge cases of the losses among them), e.g. "
                              "content_loss,style_loss,tv_loss")
     parser.add_argument("--steps", type=int, default=20,
-                        help="optimizer steps per scale of the stylize phases (default 20)")
+                        help="optimizer steps per scale of the stylize phases, of lbfgs's first "
+                             "part and of the cli phase's configurations (default 20)")
     args = parser.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = [p for p in phases if p not in PHASES]
@@ -1771,6 +2273,8 @@ def main(argv=None) -> int:
     if "lbfgs" in phases:
         launches["lbfgs"] = timed("lbfgs", lambda: lbfgs_check(torch, params, mean, std,
                                                              args.steps))
+    if "cli" in phases:
+        timed("cli", lambda: cli_check(torch, args.steps))
     emit({"phase": "memory", "peak_mib": {"objective": peak.get("objective")},
           "seconds_by_phase": seconds_by_phase})
 

@@ -59,8 +59,20 @@ event of a run that stops early carries ``done=True``), then the callback,
 whose event's ``get_state`` is the resumable state of that chunk;
 ``stylize(resume_state=...)`` continues from it (``utils/ckpt.py``).
 
-Left out (ROADMAP.md): pipelined chunks and background compiles, remat,
-grid snapping and the 2^31 TPU resolution ceiling, meshes, and the
+``StylizeConfig.remat`` is the reference's gradient rematerialization
+(``api.py:153-163, 602-619, 664``): each kernel call of the chain and of
+``fused_block1``'s block 1 runs under a non-reentrant
+``torch.utils.checkpoint.checkpoint`` (JAX ``jax.checkpoint`` around each
+kernel call), and the plain ``extract_features`` calls checkpoint each
+block. The backward then recomputes a kernel's forward (the same CUDA
+kernel, which gives the same bits launch to launch) instead of keeping its
+residuals across the step; only the handoffs between kernels stay live.
+``remat=None`` turns it on from a pixel count measured on the H100
+(:data:`REMAT_AUTO_PIXELS`, :data:`REMAT_AUTO_PIXELS_FUSED`). Target capture
+runs under ``torch.no_grad()`` and takes no checkpoint.
+
+Left out (ROADMAP.md): pipelined chunks and background compiles, grid
+snapping and the 2^31 TPU resolution ceiling, meshes, and the
 ``packed_block*`` switches (the chain engages by its structural gates alone).
 """
 
@@ -74,6 +86,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from style_transfer_tpu_torch.models import vgg as vgg_mod
 from style_transfer_tpu_torch.models.weights import random_fixture
@@ -137,12 +150,52 @@ class StylizeConfig:
     # Sanitizer: verify every fetched loss term is finite and raise with run
     # coordinates otherwise. Host-side only: the steps are unchanged.
     debug_checks: bool = False
+    # Gradient rematerialization: recompute each kernel's (and each plain
+    # block's) forward inside the backward instead of storing its residuals.
+    # None = auto: on from REMAT_AUTO_PIXELS pixels, or from
+    # REMAT_AUTO_PIXELS_FUSED where the full kernel chain carries the VGG.
+    remat: Optional[bool] = None
 
     def end_size(self, content_hw: Tuple[int, int]) -> Tuple[int, int]:
         if isinstance(self.size, int):
             return imgio.scale_size(content_hw, self.size)
         h, w = self.size
         return int(h), int(w)
+
+
+#: Where ``StyleTransfer()`` without a device finds no card.
+NO_CUDA_MESSAGE = (
+    "StyleTransfer runs on an NVIDIA GPU by default and CUDA is not "
+    'available; pass device="cpu" to run on the CPU'
+)
+
+# Auto-remat thresholds, from the H100's own peaks (chip_smoke.py, phase
+# cli, part remat_fit; NVIDIA H100 80GB HBM3, 700 W): the peak device memory
+# of one stored-path scale of configuration 2's flags, measured at 2048^2
+# and 4096^2 and fit as linear in pixels, reaches 75% of the card's 80 GB
+# (57220 MiB; the rest is left to the caching allocator and the CUDA
+# context) at
+#   the full kernel chain: 3258.5 and 12220.3 MiB, 712.2 MiB/Mpx + 271.3 MiB
+#     -> 79.96 Mpx (8942 px square);
+#   the plain path (bf16): 7039.0 and 26984.0 MiB, 1585.1 MiB/Mpx + 390.7 MiB
+#     -> 35.85 Mpx (5988 px square).
+# (The reference's REMAT_AUTO_PIXELS are a 16 GB TPU's numbers.) Measured at
+# 4096^2, remat on the chain lowered the peak by 3% only (12220 -> 11835
+# MiB): block 1's backward transients, which remat does not remove, set it.
+
+#: Pixels per image from which ``StylizeConfig.remat=None`` turns remat on
+#: where the plain path carries some of the VGG.
+REMAT_AUTO_PIXELS = 35_850_000
+#: The same where the full kernel chain carries it
+#: (:meth:`StyleTransfer._full_chain_dispatches`).
+REMAT_AUTO_PIXELS_FUSED = 79_960_000
+
+
+def _checkpointed(fn):
+    """``fn`` under a non-reentrant checkpoint: its forward runs again in the
+    backward. The kernels draw no random numbers, so no RNG state is kept."""
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
 
 
 def _style_size(style_hw, scale_hw, style_scale: float) -> Tuple[int, int]:
@@ -188,10 +241,7 @@ class StyleTransfer:
             std = fstd if std is None else std
         if device is None:
             if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "StyleTransfer runs on an NVIDIA GPU by default and CUDA is not "
-                    'available; pass device="cpu" to run on the CPU'
-                )
+                raise RuntimeError(NO_CUDA_MESSAGE)
             device = "cuda"
         self.device = torch.device(device)
         self.mean = np.asarray(imgio.IMAGENET_MEAN if mean is None else mean, np.float32)
@@ -208,12 +258,13 @@ class StyleTransfer:
 
     # ---------------------------------------------------------------- model
 
-    def _features(self, image: torch.Tensor, layers: Sequence[str]) -> Dict[str, torch.Tensor]:
+    def _features(self, image: torch.Tensor, layers: Sequence[str],
+                  remat: bool = False) -> Dict[str, torch.Tensor]:
         """Preprocess + plain VGG forward on an NHWC [0,1] image."""
         x = imgio.preprocess(image, self.mean, self.std)
         return vgg_mod.extract_features(
             self.params, x, layers, pooling=self.pooling,
-            compute_dtype=self.compute_dtype, arch=self.arch,
+            compute_dtype=self.compute_dtype, arch=self.arch, remat=remat,
         )
 
     def _weights(self, *names):
@@ -298,17 +349,43 @@ class StyleTransfer:
             and "conv4_1" not in content_layers
         )
 
-    def _chain_features(self, image, content_layers, style_layers):
+    def _full_chain_dispatches(self, h: int, w: int, content_layers, style_layers) -> bool:
+        """True when :meth:`_chain_features` on an (h, w) image computes every
+        requested layer in kernels and never reaches the plain
+        ``extract_features`` (JAX ``_full_chain_dispatches``, ``api.py:208``).
+        It mirrors the chain's gates, and picks the auto-remat threshold:
+        the kernels store bf16 residuals and masks, the plain path more."""
+        all_layers = set(content_layers) | set(style_layers)
+        if not (self._block4_eligible(content_layers, style_layers) and h % 16 == 0
+                and w % 16 == 0):
+            return False  # evenness at the image, pool1, pool2 and pool3
+        if all_layers & {"conv4_3", "conv4_4", "pool4"}:
+            return False  # the block-4 tail would run plain
+        deeper = all_layers - {"conv1_1", "conv2_1", "conv3_1", "conv4_1", "conv4_2"}
+        return not deeper or (deeper == {"conv5_1"} and "conv5_1" not in content_layers)
+
+    def _use_remat(self, cfg: StylizeConfig, h: int, w: int) -> bool:
+        """``cfg.remat``, or for ``None`` whether an (h, w) image reaches the
+        auto threshold of the route ``cfg`` takes (``api.py:602-619``)."""
+        if cfg.remat is not None:
+            return cfg.remat
+        full = (self._chain(cfg)
+                and self._full_chain_dispatches(h, w, cfg.content_layers, cfg.style_layers))
+        return h * w >= (REMAT_AUTO_PIXELS_FUSED if full else REMAT_AUTO_PIXELS)
+
+    def _chain_features(self, image, content_layers, style_layers, remat: bool = False):
         """The fused-chain VGG forward of ``api.py:644-918``: returns
         ``(feats, grams)`` — activations for the requested layers the chain
-        does not carry, and the chain's Grams for requested style layers."""
+        does not carry, and the chain's Grams for requested style layers.
+        ``remat`` runs each kernel call under a checkpoint (``api.py:664``)."""
         all_layers = tuple(dict.fromkeys(list(content_layers) + list(style_layers)))
         style = set(style_layers)
         if not (self._block1_structurally_eligible(content_layers, style_layers) and _even(image)):
-            return self._features(image, all_layers), {}
+            return self._features(image, all_layers, remat), {}
+        ck = _checkpointed if remat else (lambda f: f)
         x = imgio.preprocess(image, self.mean, self.std).to(self.compute_dtype)
         grams: Dict[str, torch.Tensor] = {}
-        pool1, g = B1.block1_packed(x, *self._weights("conv1_1", "conv1_2"))
+        pool1, g = ck(B1.block1_packed)(x, *self._weights("conv1_1", "conv1_2"))
         if "conv1_1" in style:
             grams["conv1_1"] = g
         covered = {"conv1_1"}
@@ -316,7 +393,7 @@ class StyleTransfer:
         y42 = None
         if self._block2_eligible(content_layers, style_layers) and _even(pool1):
             b2 = _segment(pool1, 64, 128, pool=True, gram=True, block2=True)
-            pool2, g = b2(pool1, *self._weights("conv2_1", "conv2_2"))
+            pool2, g = ck(b2)(pool1, *self._weights("conv2_1", "conv2_2"))
             if "conv2_1" in style:
                 grams["conv2_1"] = g
             covered.add("conv2_1")
@@ -324,8 +401,8 @@ class StyleTransfer:
             if self._block3_eligible(content_layers, style_layers) and _even(pool2):
                 b3f = _segment(pool2, 128, 256, pool=False, gram=True)
                 b3t = _segment(pool2, 256, 256, pool=True, gram=False)
-                y32, g = b3f(pool2, *self._weights("conv3_1", "conv3_2"))
-                pool3 = b3t(y32, *self._weights("conv3_3", "conv3_4"))
+                y32, g = ck(b3f)(pool2, *self._weights("conv3_1", "conv3_2"))
+                pool3 = ck(b3t)(y32, *self._weights("conv3_3", "conv3_4"))
                 if "conv3_1" in style:
                     grams["conv3_1"] = g
                 covered.add("conv3_1")
@@ -337,58 +414,60 @@ class StyleTransfer:
                     and _even(pool3)
                 ):
                     b4f = _segment(pool3, 256, 512, pool=False, gram=True)
-                    y42, g = b4f(pool3, *self._weights("conv4_1", "conv4_2"))
+                    y42, g = ck(b4f)(pool3, *self._weights("conv4_1", "conv4_2"))
                     if "conv4_1" in style:
                         grams["conv4_1"] = g
                     covered.update(("conv4_1", "conv4_2"))
                     start_block, handoff, start_conv = 4, y42, 2
                     if any(l not in covered for l in all_layers):
                         b4t = _segment(pool3, 512, 512, pool=True, gram=False)
-                        pool4 = b4t(y42, *self._weights("conv4_3", "conv4_4"))
+                        pool4 = ck(b4t)(y42, *self._weights("conv4_3", "conv4_4"))
                         covered.update(b4_tail)
                         start_block, handoff, start_conv = 5, pool4, 0
         deeper = tuple(l for l in all_layers if l not in covered)
         if deeper == ("conv5_1",) and start_block == 5 and "conv5_1" not in content_layers:
             tail = (CG.conv_gram if dispatch.gram_tail_impl(handoff.shape[2], 512) == "conv_gram"
                     else CS.gram_tail)
-            grams["conv5_1"] = tail(handoff, *self._weights("conv5_1"))
+            grams["conv5_1"] = ck(tail)(handoff, *self._weights("conv5_1"))
             deeper = ()
         feats: Dict[str, torch.Tensor] = {}
         if deeper:
             feats = vgg_mod.extract_features(
                 self.params, handoff, deeper, pooling=self.pooling, arch=self.arch,
-                start_block=start_block, start_conv=start_conv,
+                remat=remat, start_block=start_block, start_conv=start_conv,
             )
         if y42 is not None and "conv4_2" in all_layers:
             feats["conv4_2"] = y42
         return feats, grams
 
-    def _fused_block1_features(self, image, content_layers, style_layers):
+    def _fused_block1_features(self, image, content_layers, style_layers, remat: bool = False):
         """The ``fused_block1`` VGG forward of ``api.py:923-958``:
         ``block1_full`` from the preprocessed image, then the plain deeper
         blocks from pool1. Returns ``(feats, grams)`` like
         :meth:`_chain_features`; odd extents take the plain path."""
         all_layers = tuple(dict.fromkeys(list(content_layers) + list(style_layers)))
         if not _even(image):
-            return self._features(image, all_layers), {}
+            return self._features(image, all_layers, remat), {}
+        ck = _checkpointed if remat else (lambda f: f)
         x = imgio.preprocess(image, self.mean, self.std).to(self.compute_dtype)
-        pool1, g1 = B1.block1_full(x, *self._weights("conv1_1", "conv1_2"))
+        pool1, g1 = ck(B1.block1_full)(x, *self._weights("conv1_1", "conv1_2"))
         deeper = tuple(l for l in all_layers if l != "conv1_1")
         feats: Dict[str, torch.Tensor] = {}
         if deeper:
             feats = vgg_mod.extract_features(
-                self.params, pool1, deeper, pooling=self.pooling, arch=self.arch, start_block=2,
+                self.params, pool1, deeper, pooling=self.pooling, arch=self.arch,
+                remat=remat, start_block=2,
             )
         return feats, ({"conv1_1": g1} if "conv1_1" in style_layers else {})
 
-    def _vgg(self, cfg: StylizeConfig, image, content_layers, style_layers):
+    def _vgg(self, cfg: StylizeConfig, image, content_layers, style_layers, remat: bool = False):
         """``(feats, grams)`` of ``image`` by the route ``cfg`` selects."""
         if self._block1_eligible(cfg):
-            return self._fused_block1_features(image, content_layers, style_layers)
+            return self._fused_block1_features(image, content_layers, style_layers, remat)
         if self._chain(cfg):
-            return self._chain_features(image, content_layers, style_layers)
+            return self._chain_features(image, content_layers, style_layers, remat)
         layers = tuple(dict.fromkeys(list(content_layers) + list(style_layers)))
-        return self._features(image, layers), {}
+        return self._features(image, layers, remat), {}
 
     def _build_objective(self, cfg: StylizeConfig):
         """``objective(image, c_targets, s_targets) -> (loss, terms)`` with
@@ -400,7 +479,8 @@ class StyleTransfer:
         loss_fns = self._loss_fns(cfg)
 
         def objective(image, c_targets, s_targets):
-            feats, grams = self._vgg(cfg, image, cfg.content_layers, cfg.style_layers)
+            remat = self._use_remat(cfg, image.shape[1], image.shape[2])
+            feats, grams = self._vgg(cfg, image, cfg.content_layers, cfg.style_layers, remat)
             terms = L.objective_terms(
                 feats,
                 gram_overrides=grams or None,

@@ -9,9 +9,11 @@ reference compare like with like. Convolutions go through ``F.conv2d`` on a
 channels-last view (this is the plain path; the fused path runs the
 hand-written kernels of ``ops/kernels``).
 
-Left out: ``shard_divisor`` and the SPMD slice-pool variant (spatial meshes
-are not ported yet), ``remat`` (``jax.checkpoint`` per block), and the
-``VGG`` convenience class.
+``remat=True`` checkpoints each conv block with a non-reentrant
+``torch.utils.checkpoint.checkpoint``, the counterpart of the reference's
+``jax.checkpoint(block_fn)``. Left out: ``shard_divisor`` and the SPMD
+slice-pool variant (spatial meshes are not ported yet), and the ``VGG``
+convenience class.
 
 ``init_params`` draws He-normal weights from ``numpy.random.RandomState``,
 so its values differ from the JAX package's ``jax.random`` fixture; parity
@@ -25,6 +27,7 @@ from typing import Dict, Iterable, Mapping, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 ARCH_BLOCKS: Dict[str, tuple] = {
     "vgg19": (2, 2, 4, 4, 4),
@@ -158,6 +161,7 @@ def extract_features(
     pooling: str = "average",
     compute_dtype: Optional[torch.dtype] = None,
     arch: str = DEFAULT_ARCH,
+    remat: bool = False,
     start_block: int = 1,
     start_conv: int = 0,
 ) -> Dict[str, torch.Tensor]:
@@ -168,6 +172,12 @@ def extract_features(
     ``start_block - 1``; ``start_conv > 0`` as the post-ReLU output of that
     many convs within the start block — the seams where the fused kernels
     hand over. The forward stops at the deepest requested layer.
+
+    ``remat=True`` checkpoints each conv *block*: between forward and
+    backward only block boundaries and requested activations stay live, and
+    each block's backward recomputes just that block's interior. Blockwise
+    is the reference's grain (``vgg.py:241-246``): one checkpoint around the
+    whole extractor re-stores every activation during its one recompute.
     """
     if not layers:
         raise ValueError("no layers requested")
@@ -181,17 +191,31 @@ def extract_features(
         if b < start_block:
             continue
         skip = start_conv if b == start_block else 0
-        for name in [f"conv{b}_{i}" for i in range(skip + 1, n + 1)]:
-            p = params[name]
-            x = torch.relu(conv3x3(x, p["kernel"], p["bias"]))
-            if name in wanted:
-                feats[name] = x
-            if name == stop:
-                return feats
-        x = pool2x2(x, pooling)
-        if f"pool{b}" in wanted:
-            feats[f"pool{b}"] = x
-        if f"pool{b}" == stop:
+        names = [f"conv{b}_{i}" for i in range(skip + 1, n + 1)]
+        pool_name = f"pool{b}"
+        block_stop = stop if (stop in names or stop == pool_name) else None
+
+        def block_fn(x, names=names, pool_name=pool_name, block_stop=block_stop):
+            bf: Dict[str, torch.Tensor] = {}
+            for name in names:
+                p = params[name]
+                x = torch.relu(conv3x3(x, p["kernel"], p["bias"]))
+                if name in wanted:
+                    bf[name] = x
+                if name == block_stop:
+                    return x, bf
+            x = pool2x2(x, pooling)
+            if pool_name in wanted:
+                bf[pool_name] = x
+            return x, bf
+
+        if remat:
+            x, block_feats = torch.utils.checkpoint.checkpoint(
+                block_fn, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, block_feats = block_fn(x)
+        feats.update(block_feats)
+        if block_stop is not None:
             return feats
     return feats
 

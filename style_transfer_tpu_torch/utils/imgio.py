@@ -14,6 +14,7 @@ time. Axes whose size does not change are left alone, as JAX does.
 
 from __future__ import annotations
 
+import io
 import math
 from typing import Optional, Tuple
 
@@ -54,6 +55,17 @@ def to_uint8(arr) -> np.ndarray:
 def save_image(arr, path: str) -> None:
     """Encode a float RGB image in [0, 1] to a file."""
     Image.fromarray(to_uint8(arr)).save(path)
+
+
+def encode_image(arr, format: str = "JPEG", quality: int = 85) -> bytes:
+    """Encode to in-memory JPEG or PNG bytes (the web monitor's frames)."""
+    buf = io.BytesIO()
+    im = Image.fromarray(to_uint8(arr))
+    if format.upper() == "JPEG":
+        im.save(buf, format="JPEG", quality=quality)
+    else:
+        im.save(buf, format=format.upper())
+    return buf.getvalue()
 
 
 def quantize_u8(image: torch.Tensor) -> torch.Tensor:

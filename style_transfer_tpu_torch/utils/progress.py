@@ -3,13 +3,14 @@
 Counterpart of ``style_transfer_tpu/utils/progress.py`` (``ProgressEvent``,
 ``Callback``, ``Printer``, ``MetricsRecorder``, ``fanout``); the optimize
 loop emits one :class:`ProgressEvent` per chunk, whose ``get_state`` returns
-the resumable state of that chunk (``utils/ckpt.py``). Left out:
-``MetricsRecorder.dump`` (the CLI's ``--metrics-out``).
+the resumable state of that chunk (``utils/ckpt.py``).
+:meth:`MetricsRecorder.dump` writes the CLI's ``--metrics-out`` file.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -103,6 +104,12 @@ class MetricsRecorder:
             "per_scale_chunks_counted": {k: len(v) for k, v in steady.items()},
             "final_loss": self.records[-1]["loss"] if self.records else None,
         }
+
+    def dump(self, path: str) -> None:
+        """Write ``{"records": [...], "summary": {...}}`` as JSON, the JAX
+        package's layout."""
+        with open(path, "w") as f:
+            json.dump({"records": self.records, "summary": self.summary()}, f, indent=2)
 
 
 def fanout(*callbacks: Optional[Callback]) -> Callback:

@@ -22,7 +22,9 @@ from style_transfer_tpu_torch.ops.kernels import gram as KG
 REPO = Path(__file__).resolve().parents[1]
 MODULES = [
     "style_transfer_tpu_torch",
+    "style_transfer_tpu_torch.__main__",
     "style_transfer_tpu_torch.api",
+    "style_transfer_tpu_torch.cli",
     "style_transfer_tpu_torch.linesearch",
     "style_transfer_tpu_torch.optim",
     "style_transfer_tpu_torch.schedule",
@@ -43,6 +45,8 @@ MODULES = [
     "style_transfer_tpu_torch.utils.ckpt",
     "style_transfer_tpu_torch.utils.imgio",
     "style_transfer_tpu_torch.utils.progress",
+    "style_transfer_tpu_torch.utils.snapshots",
+    "style_transfer_tpu_torch.web",
 ]
 
 
