@@ -125,10 +125,26 @@ Phases, one JSON object per line on stdout:
    ``--fused-block1`` and ``--unfused`` (which kernels launch); ``--web``
    where aiohttp imports; ``python -m style_transfer_tpu_torch`` in a
    subprocess.
+14. pipeline — the pipelined chunk loop of ``stylize()`` (``api.py``): the
+   depth of CUDA's launch queue; no synchronizing CUDA call while an
+   Adam chunk is queued on six routes (counted by file and line under
+   ``torch.cuda.set_sync_debug_mode``), and an L-BFGS chunk's equal to its
+   line-search reads; pipelined and sequential runs bit-equal over 256 ->
+   1024 px (plain, EMA, early stop with two chunks queued) and L-BFGS over
+   256 -> 512, images fetched in the callback included; a resume from a
+   ``get_state()`` taken with two chunks queued; at 2048^2 in chunks of 50
+   with the CLI's sinks, the device idle time between chunks from the
+   profiler's trace (pipelined, under ``GAP_SHARE`` of a chunk's device
+   time plus what the longest callback takes beyond a chunk; sequential,
+   above it), each sink's and the callback's host time and the it/s both
+   ways; configuration 2
+   through ``cli.main`` with and without ``--no-pipeline``; the peak memory
+   both ways at 2048^2 and 4096^2.
 
 Each stylize phase, each arm of the objective phase and the lbfgs phase's
-configuration-4 run and each ``cli.main`` run of the cli phase set every
-launch count to 0 just before they run and read them all just after. Then a
+configuration-4 run, each ``cli.main`` run of the cli phase and each run of
+the pipeline phase's bit-equality and gap parts set every launch count to 0
+just before they run and read them all just after. Then a
 ``{"kernels": [...]}`` summary line (eleven kernels, each with the launches
 of the phase whose path runs it, forward and backward kernels alike, its
 error, its time, the plain version's, the library call's and its bound, for
@@ -2146,8 +2162,495 @@ def cli_check(torch, steps):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The pipeline phase: the chain's kernels that the 256 -> 1024 px runs must
+# launch, and the share of a chunk's device time that an idle gap between
+# two chunks may take at 2048^2 with the CLI's sinks, beyond the host time
+# by which the longest callback outlasts a chunk.
+PIPE_CHAIN = ("block1_packed", "conv_pair", "conv_gram", "tv_loss")
+GAP_SHARE = 0.05
+#: The CLI's sinks that the gap part fires every chunk, each timed alone.
+SINKS = ("Printer", "MetricsRecorder", "SnapshotSaver", "CheckpointManager")
+#: What ``torch.cuda.set_sync_debug_mode("warn")`` says at each synchronizing
+#: call (its first use also warns that the mode is a prototype feature).
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class _DispatchSpy:
+    """Wraps ``StyleTransfer._dispatch_chunk`` of one instance: counts the
+    chunks queued, and with ``sync_mode`` counts the synchronizing CUDA calls
+    made while each is queued (``torch.cuda.set_sync_debug_mode``), by the
+    file and line that made them; with ``markers`` it launches the empty
+    kernel just before and just after each chunk, so that a profiler trace
+    shows where each chunk's device work begins and ends. Each sync is
+    recorded as the innermost frames of the Python stack that made it."""
+
+    def __init__(self, torch, st, *, sync_mode=None, markers=False):
+        self.torch, self.st, self.sync_mode, self.markers = torch, st, sync_mode, markers
+        self.queued, self.syncs, self.chunks = 0, [], []
+
+    def __enter__(self):
+        import traceback
+        import warnings
+
+        from style_transfer_tpu_torch.ops.kernels import _launch
+
+        real, torch = self.st._dispatch_chunk, self.torch
+
+        def dispatch(*args, **kw):
+            if self.markers:
+                _launch.noop()
+            if self.sync_mode is None:
+                rec = real(*args, **kw)
+            else:
+                syncs = []
+
+                def show(message, category, filename, lineno, *rest):
+                    if SYNC_WARNING in str(message):
+                        syncs.append(" < ".join(f"{f.filename}:{f.lineno}:{f.name}" for f in
+                                                reversed(traceback.extract_stack()[-8:-2])))
+
+                with warnings.catch_warnings():
+                    warnings.simplefilter("always")
+                    warnings.showwarning = show
+                    torch.cuda.set_sync_debug_mode(self.sync_mode)
+                    try:
+                        rec = real(*args, **kw)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                self.syncs.append(syncs)
+            if self.markers:
+                _launch.noop()
+            self.chunks.append((tuple(args[1].shape[1:3]), kw["done_iters"] + kw["n"]))
+            self.queued += 1
+            return rec
+
+        self.st._dispatch_chunk = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        del self.st._dispatch_chunk  # the class's method again
+
+
+def _pending_launch_limit(torch):
+    """How many empty launches the host queues behind a kernel that keeps the
+    card busy for about a second before a launch call blocks: the depth of
+    CUDA's launch queue (None if 8192 never block)."""
+    from style_transfer_tpu_torch.ops.kernels import _launch
+
+    torch.cuda._sleep(1000)  # both kernels loaded before the count starts
+    _launch.noop()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)  # clock cycles: about a second on the H100
+    limit = None
+    for i in range(8192):
+        t0 = time.perf_counter()
+        _launch.noop()
+        if time.perf_counter() - t0 > 0.05:
+            limit = i
+            break
+    torch.cuda.synchronize()
+    return limit
+
+
+def _pipeline_syncs(torch, st, r):
+    """Part 1 of :func:`pipeline_check`; returns what failed."""
+    import dataclasses
+
+    import numpy as np
+
+    from style_transfer_tpu_torch import StylizeConfig, linesearch
+    from style_transfer_tpu_torch.optim import OptimizerSpec
+
+    img = {n: (r.rand(n, n, 3).astype(np.float32), r.rand(n, n, 3).astype(np.float32))
+           for n in (512, 1024, 2048)}
+    base = StylizeConfig(size=512, min_scale=512, iterations=(20,), chunk_size=10)
+    routes = {
+        "chain_256_1024": (1024, dataclasses.replace(base, size=1024, min_scale=256)),
+        "singles_2048": (2048, dataclasses.replace(base, size=2048, min_scale=2048)),
+        "fused_block1": (512, dataclasses.replace(base, fused_block1=True)),
+        "unfused": (512, dataclasses.replace(base, use_fused=False)),
+        "remat": (512, dataclasses.replace(base, remat=True)),
+        "avg_decay": (512, dataclasses.replace(base, avg_decay=0.9)),
+    }
+    out = {}
+    for name, (n, cfg) in routes.items():
+        with _DispatchSpy(torch, st, sync_mode="warn") as spy:
+            st.stylize(*img[n], cfg)
+        out[name] = {"chunks": spy.queued, "syncs_per_chunk": [len(c) for c in spy.syncs],
+                     "where": sorted({w for c in spy.syncs for w in c})}
+    with _DispatchSpy(torch, st, sync_mode="error") as spy:  # raises on the first one
+        st.stylize(*img[1024], routes["chain_256_1024"][1])
+    error_mode_chunks = spy.queued
+    lbfgs = dataclasses.replace(base, optimizer=OptimizerSpec("lbfgs", memory_size=10),
+                                tv_weight=8.0)
+    reads0 = linesearch.host_reads.n
+    with _DispatchSpy(torch, st, sync_mode="warn") as spy:
+        st.stylize(*img[512], lbfgs)
+    reads = linesearch.host_reads.n - reads0
+    syncs = sum(len(c) for c in spy.syncs)
+    emit({"phase": "pipeline", "part": "syncs", "adam_routes": out,
+          "chunks_under_error_mode": error_mode_chunks,
+          "lbfgs_512": {"chunks": spy.queued, "syncs": syncs, "linesearch_host_reads": reads,
+                        "where": sorted({w for c in spy.syncs for w in c})}})
+    bad = {k: v for k, v in out.items() if any(v["syncs_per_chunk"]) or not v["chunks"]}
+    failures = []
+    if bad:
+        failures.append(f"synchronizing calls in an Adam chunk: {bad}")
+    if syncs != reads or not reads:
+        failures.append(f"an L-BFGS chunk made {syncs} synchronizing calls for {reads} "
+                        "line-search reads")
+    return failures
+
+
+def _observed_run(torch, st, content, style, cfg, *, late_images=False, **kw):
+    """One ``stylize()`` with a callback that keeps every event's
+    coordinates, losses and ``get_image()`` (fetched inside the callback,
+    every other one from a second thread as the web monitor does), the
+    chunks queued when it ran, and the launch counts of the run."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    counters = _counters()
+    for c in counters.values():
+        c.n = 0
+    got = {"coords": [], "losses": [], "images": [], "ahead": [], "events": []}
+    with ThreadPoolExecutor(max_workers=1) as pool, _DispatchSpy(torch, st) as spy:
+        def callback(ev):  # chunks queued after this event's own
+            queued = spy.chunks[:spy.queued]
+            own = max(i for i, c in enumerate(queued) if c == (tuple(ev.size), ev.iteration))
+            got["ahead"].append(len(queued) - 1 - own)
+            got["coords"].append((ev.scale_index, ev.iteration, ev.done))
+            got["losses"].append({k: v.copy() for k, v in ev.losses.items()})
+            fetch = pool.submit(ev.get_image).result if len(got["images"]) % 2 else ev.get_image
+            got["images"].append(fetch())
+            if late_images:
+                got["events"].append(ev)
+
+        out = st.stylize(content, style, cfg, callback=callback, **kw)
+    got["launches"] = {k: c.n for k, c in counters.items()}
+    got["queued_total"] = spy.queued
+    return out, got
+
+
+def _same_run(name, a, b):
+    """Raises unless two observed runs are equal bit for bit."""
+    import numpy as np
+
+    (out_a, ga), (out_b, gb) = a, b
+    diffs = []
+    if not np.array_equal(out_a, out_b):
+        diffs.append(f"image (max abs {float(np.abs(out_a - out_b).max())})")
+    if ga["coords"] != gb["coords"]:
+        diffs.append(f"events {ga['coords']} != {gb['coords']}")
+    for i, (la, lb, ia, ib) in enumerate(zip(ga["losses"], gb["losses"], ga["images"],
+                                             gb["images"])):
+        if la.keys() != lb.keys() or not all(np.array_equal(la[k], lb[k]) for k in la):
+            diffs.append(f"losses of event {i}")
+        if not np.array_equal(ia, ib):
+            diffs.append(f"get_image of event {i}")
+    if diffs:
+        raise AssertionError(f"pipeline {name}: pipelined and sequential differ: {diffs[:6]}")
+
+
+def _pipeline_bits(torch, st, r):
+    """Parts 2 and 3 of :func:`pipeline_check`."""
+    import dataclasses
+
+    import numpy as np
+
+    from style_transfer_tpu_torch import StylizeConfig
+    from style_transfer_tpu_torch.optim import OptimizerSpec
+
+    content = r.rand(1024, 1024, 3).astype(np.float32)
+    style = r.rand(1024, 1024, 3).astype(np.float32)
+    chain = StylizeConfig(size=1024, min_scale=256, iterations=(30,), chunk_size=10)
+    runs = {
+        "chain": chain,
+        "avg_decay": dataclasses.replace(chain, avg_decay=0.9),
+        # stop_tol=1 counts every chunk as a stall: each scale stops at its
+        # third chunk of six, with the fourth and fifth queued
+        "early_stop": dataclasses.replace(chain, iterations=(60,), stop_tol=1.0, stop_patience=2),
+        "lbfgs": dataclasses.replace(chain, size=512, optimizer=OptimizerSpec(
+            "lbfgs", memory_size=10), tv_weight=8.0),
+    }
+    report = {}
+    for name, cfg in runs.items():
+        seq = _observed_run(torch, st, content, style,
+                            dataclasses.replace(cfg, pipeline_chunks=False))
+        pipe = _observed_run(torch, st, content, style,
+                             dataclasses.replace(cfg, pipeline_chunks=True),
+                             late_images=name == "chain")
+        _same_run(name, seq, pipe)
+        g = pipe[1]
+        ahead = g["ahead"]
+        report[name] = {"events": g["coords"], "queued": g["queued_total"],
+                        "chunks_queued_beyond_the_processed_one": ahead,
+                        "launches": g["launches"], "bit_equal": True}
+        if max(ahead) < 2:
+            raise AssertionError(f"pipeline {name}: no callback ran with two chunks queued "
+                                 f"beyond its own: {ahead}")
+        if name == "chain":
+            missing = [k for k in PIPE_CHAIN if g["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"pipeline: kernels never launched on the path: {missing}")
+            late = [ev.get_image() for ev in g["events"]]  # after later chunks ran and freed
+            if not all(np.array_equal(x, y) for x, y in zip(late, g["images"])):
+                raise AssertionError("pipeline: a late get_image() differs from its callback's")
+        if name == "early_stop":
+            scales = {sc for sc, _, _ in g["coords"]}
+            ends = [it for _, it, _ in g["coords"] if it == 30]
+            if len(ends) != len(scales) or g["queued_total"] != 5 * len(scales) \
+                    or not g["coords"][-1][2]:
+                raise AssertionError(f"pipeline early_stop: not stopped mid-scale with two "
+                                     f"chunks queued: {g['coords']}, {g['queued_total']}")
+    emit({"phase": "pipeline", "part": "bit_equal", "runs": report})
+
+    # resume from get_state() inside the callback of chunk 1 of 6
+    one = StylizeConfig(size=512, min_scale=512, iterations=(60,), chunk_size=10,
+                        pipeline_chunks=True)
+    saved = []
+    with _DispatchSpy(torch, st) as spy:
+        full = st.stylize(content, style, one, callback=lambda ev: saved.append(
+            (spy.queued, ev.get_state())) if ev.iteration == 10 else None)
+    resumed = st.stylize(content, style, one, resume_state=saved[0][1])
+    equal = bool(np.array_equal(full, resumed))
+    emit({"phase": "pipeline", "part": "resume", "queued_when_taken": saved[0][0],
+          "resumed_from_iteration": int(saved[0][1]["iteration"]), "bit_equal": equal})
+    if saved[0][0] < 3 or not equal:
+        raise AssertionError(f"pipeline: resume from chunk 1 with {saved[0][0]} queued: "
+                             f"bit_equal={equal}")
+
+
+def _chunk_gaps(torch, prof, chunks):
+    """From a trace of ``chunks`` chunks queued between marker launches: each
+    chunk's device span and busy time on the compute stream, the idle time
+    between the last kernel of one chunk and the first of the next, in ms,
+    and the seconds from the first chunk's end to the last one's."""
+    ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(ev) if "noop_kernel" in e.name]
+    if len(marks) != 2 * chunks:
+        return None
+    stream = ev[marks[0]].device_resource_id
+    spans, busy, gaps, ends = [], [], [], []  # ms, ms, ms, us
+    for k in range(chunks):
+        mine = [e for e in ev[marks[2 * k] + 1:marks[2 * k + 1]]
+                if e.device_resource_id == stream]
+        first, last = mine[0].time_range.start, max(e.time_range.end for e in mine)
+        spans.append((last - first) / 1e3)
+        busy.append(sum(e.time_range.elapsed_us() for e in mine) / 1e3)
+        if ends:
+            gaps.append((first - ends[-1]) / 1e3)
+        ends.append(last)
+    return spans, busy, gaps, (ends[-1] - ends[0]) / 1e6
+
+
+def _timed_sink(fn, times):
+    """``fn`` as a callback that appends its host seconds to ``times``."""
+    def timed(ev):
+        t0 = time.perf_counter()
+        fn(ev)
+        times.append(time.perf_counter() - t0)
+    return timed
+
+
+def _pipeline_gap(torch, st, r):
+    """Part 4 of :func:`pipeline_check`."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from style_transfer_tpu_torch import StylizeConfig
+    from style_transfer_tpu_torch.utils.ckpt import CheckpointManager
+    from style_transfer_tpu_torch.utils.progress import MetricsRecorder, Printer, fanout
+    from style_transfer_tpu_torch.utils.snapshots import SnapshotSaver
+
+    content = r.rand(2048, 2048, 3).astype(np.float32)
+    style = r.rand(2048, 2048, 3).astype(np.float32)
+    chunk, chunks = 50, 8
+    tmp = tempfile.mkdtemp(prefix="pipeline_phase_")
+    report = {}
+    try:
+        for pipelined in (True, False):
+            cfg = StylizeConfig(size=2048, min_scale=2048, iterations=(chunk * chunks,),
+                                chunk_size=chunk, pipeline_chunks=pipelined)
+            for attempt in range(3):  # a trace now and then comes back without device events
+                metrics, host_s, per_sink = MetricsRecorder(), [], {n: [] for n in SINKS}
+                sinks = fanout(*(_timed_sink(fn, per_sink[n]) for n, fn in zip(SINKS, (
+                    Printer(every=chunk), metrics, SnapshotSaver(f"{tmp}/out.png", every=chunk),
+                    CheckpointManager(f"{tmp}/ck{int(pipelined)}", every=chunk,
+                                      keep=2).callback))))
+
+                def callback(ev):
+                    t0 = time.perf_counter()
+                    sinks(ev)
+                    host_s.append(time.perf_counter() - t0)
+
+                counters = _counters()
+                for c in counters.values():
+                    c.n = 0
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                        _DispatchSpy(torch, st, markers=True):
+                    st.stylize(content, style, cfg, callback=callback)
+                    torch.cuda.synchronize()
+                found = _chunk_gaps(torch, prof, chunks)
+                if found is not None:
+                    break
+            if found is None:
+                raise AssertionError("pipeline: no trace with the chunks' device events")
+            spans, busy, gaps, after_first = found
+            summary = metrics.summary()
+            report["pipelined" if pipelined else "sequential"] = {
+                "chunk_device_ms": spans, "chunk_busy_ms": busy, "gap_ms": gaps,
+                "callback_host_ms": [t * 1e3 for t in host_s],
+                "sink_host_ms": {n: [t * 1e3 for t in ts] for n, ts in per_sink.items()},
+                "its_per_sec": [rec["its_per_sec"] for rec in metrics.records],
+                "its_per_sec_steady": summary["per_scale_its_per_sec"][0],
+                # the card's pace after the first chunk, the gaps between chunks included
+                "its_per_sec_with_gaps": chunk * (chunks - 1) / after_first,
+                "launches": {k: c.n for k, c in counters.items()}, "trace_attempts": attempt + 1}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pipe, seq = report["pipelined"], report["sequential"]
+    chunk_ms = statistics.mean(pipe["chunk_device_ms"])
+    # The card can hide only the host work that fits in a chunk: where the
+    # callbacks take longer, the loop waits for them, and the gap may grow by
+    # that excess; with callbacks shorter than a chunk, the limit is
+    # GAP_SHARE of a chunk alone.
+    excess_ms = max(0.0, max(pipe["callback_host_ms"]) - chunk_ms)
+    limit_ms = GAP_SHARE * chunk_ms + excess_ms
+    emit({"phase": "pipeline", "part": "gap_2048", "chunk": chunk, "chunks": chunks,
+          "sinks": list(SINKS), "gap_share_limit": GAP_SHARE,
+          "max_gap_share": max(pipe["gap_ms"]) / chunk_ms,
+          "callback_below_chunk": excess_ms == 0.0, "callback_excess_ms": excess_ms,
+          "gap_limit_ms": limit_ms, **report})
+    if pipe["launches"]["conv_single"] == 0:
+        raise AssertionError("pipeline: the 2048^2 scale did not run on the singles")
+    if not max(pipe["gap_ms"]) < limit_ms:
+        raise AssertionError(f"pipeline: idle gaps {pipe['gap_ms']} ms between chunks of "
+                             f"{chunk_ms} ms device time, above {limit_ms} ms (callbacks "
+                             f"{pipe['callback_host_ms']} ms)")
+    if not min(seq["gap_ms"]) > GAP_SHARE * chunk_ms:  # the trace sees the host's waits
+        raise AssertionError(f"pipeline: sequential gaps {seq['gap_ms']} ms, callbacks "
+                             f"{seq['callback_host_ms']} ms: the trace misses the waits")
+
+
+def _pipeline_cli(torch, r, steps):
+    """Part 5 of :func:`pipeline_check`."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="pipeline_cli_")
+    try:
+        io = _CliInputs(tmp, {(1024, 1024)})
+        base = ([io.content[(1024, 1024)], io.styles[0], "-i", str(steps)]
+                + io.conf("config2_multiscale_1024") + io.common)
+        runs = {}
+        for name, flags in (("pipelined", []), ("sequential", ["--no-pipeline"])):
+            run = _cli_run(torch, base + ["-o", f"{tmp}/{name}.png"] + flags,
+                           metrics_path=f"{tmp}/{name}.json")
+            runs[name] = (run, _png(f"{tmp}/{name}.png"),
+                          [rec["loss"] for rec in run["metrics"]["records"]])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (pr, pimg, ploss), (sr, simg, sloss) = runs["pipelined"], runs["sequential"]
+    equal = bool(np.array_equal(pimg, simg)) and ploss == sloss and pr["curves"] == sr["curves"]
+    emit({"phase": "pipeline", "part": "cli_config2", "bit_equal": equal, "steps": steps,
+          **{name: {"its_per_sec_steady": run["metrics"]["summary"]["per_scale_its_per_sec"],
+                    "peak_mib": run["peak_mib"], "seconds": run["seconds"]}
+             for name, (run, _, _) in runs.items()}})
+    if not equal:
+        raise AssertionError("pipeline: --no-pipeline changed the PNG or the losses")
+
+
+def _pipeline_memory(torch, st, r):
+    """Part 6 of :func:`pipeline_check`."""
+    import numpy as np
+
+    from style_transfer_tpu_torch import StylizeConfig
+
+    report = {}
+    for side in (2048, 4096):
+        content = r.rand(side, side, 3).astype(np.float32)
+        style = r.rand(1024, 1024, 3).astype(np.float32)
+        for pipelined in (True, False):
+            cfg = StylizeConfig(size=side, min_scale=side, iterations=(10,), chunk_size=2,
+                                pipeline_chunks=pipelined)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            st.stylize(content, style, cfg, callback=lambda ev: None)
+            torch.cuda.synchronize()
+            report[f"{side}_{'pipelined' if pipelined else 'sequential'}"] = \
+                torch.cuda.max_memory_allocated() / 2**20
+        # two records beyond the live state: image, Adam's two moments and the display image
+        report[f"{side}_extra_mib"] = report[f"{side}_pipelined"] - report[f"{side}_sequential"]
+        report[f"{side}_two_records_mib"] = 2 * 4 * side * side * 3 * 4 / 2**20
+    emit({"phase": "pipeline", "part": "memory", "steps": 10, "chunk": 2, "peak_mib": report})
+
+
+def pipeline_check(torch, params, mean, std, steps):
+    """Phase 14: the pipelined chunk loop of ``stylize()`` (``api.py``) on
+    the card, at VGG-19's full widths, seeded weights and noise, Adam and the
+    default layers unless said:
+
+    1. syncs: every chunk queued on six routes (the chain over 256 -> 1024
+       px, the singles at 2048^2, ``fused_block1``, ``use_fused=False``,
+       ``remat=True``, ``avg_decay=0.9``; two chunks of 10 a scale) makes no
+       synchronizing CUDA call (``torch.cuda.set_sync_debug_mode("warn")``,
+       counted by file and line; the chain route once more under
+       ``"error"``); an L-BFGS chunk (configuration 4's optimizer, 512 px)
+       makes exactly its line-search reads; and the depth of CUDA's
+       launch queue;
+    2. bit-equality: ``stylize()`` pipelined and sequential over 256 -> 1024
+       px (30 steps a scale in chunks of 10), the same with
+       ``avg_decay=0.9``, with ``stop_tol=1`` (each scale stops at chunk 3
+       of 6 with chunks 4 and 5 queued), and L-BFGS over 256 -> 512: the
+       image, every event's coordinates and losses, and every event's
+       ``get_image()`` fetched inside the callback (every other one from a
+       second thread) equal bit for bit; in the first run, each
+       ``get_image()`` again after the run, and the chain's kernels launched;
+    3. resume: a pipelined run's ``get_state()`` in the callback of chunk 1
+       of 6 at 512 px, taken with chunks 2 and 3 queued, resumes to the
+       uninterrupted run's bits;
+    4. the idle gap: 2048^2 in eight chunks of 50 with the CLI's sinks
+       (``Printer``, ``MetricsRecorder``, a ``SnapshotSaver`` and a
+       ``CheckpointManager`` that fire every chunk), pipelined and
+       sequential, under the profiler with an empty kernel launched around
+       each chunk: each chunk's device time, the idle time between
+       consecutive chunks' kernels on the compute stream, the callback's
+       host time, each sink's, and the it/s; pipelined, every gap must be
+       under ``GAP_SHARE`` of a chunk's device time plus the excess of the
+       longest callback over a chunk (none where every callback is shorter),
+       and sequential, every gap above ``GAP_SHARE`` of a chunk;
+    5. the command line: configuration 2 through ``cli.main`` with and
+       without ``--no-pipeline``, ``steps`` a scale: the same PNG and
+       losses, and it/s and peak memory per scale of both;
+    6. memory: the peak at 2048^2 and 4096^2, one scale of 10 steps in
+       chunks of 2 (so that records are in flight), both ways."""
+    import numpy as np
+
+    from style_transfer_tpu_torch import StyleTransfer
+
+    st = StyleTransfer(params, mean=mean, std=std, device="cuda")
+    r = np.random.RandomState(9)
+    emit({"phase": "pipeline", "part": "launch_queue",
+          "pending_launch_limit": _pending_launch_limit(torch)})
+    failures = _pipeline_syncs(torch, st, r)  # raised after the other parts have run
+    _pipeline_bits(torch, st, r)
+    _pipeline_gap(torch, st, r)
+    _pipeline_cli(torch, r, steps)
+    _pipeline_memory(torch, st, r)
+    if failures:
+        raise AssertionError(f"pipeline: {failures}")
+
+
 PHASES = ("kernel", "segment_forms", "parity", "stylize", "large", "fused_block1", "objective",
-          "profile", "ladder", "lbfgs", "cli")
+          "profile", "ladder", "lbfgs", "cli", "pipeline")
 
 
 def main(argv=None) -> int:
@@ -2275,6 +2778,8 @@ def main(argv=None) -> int:
                                                              args.steps))
     if "cli" in phases:
         timed("cli", lambda: cli_check(torch, args.steps))
+    if "pipeline" in phases:
+        timed("pipeline", lambda: pipeline_check(torch, params, mean, std, args.steps))
     emit({"phase": "memory", "peak_mib": {"objective": peak.get("objective")},
           "seconds_by_phase": seconds_by_phase})
 

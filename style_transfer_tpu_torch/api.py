@@ -4,8 +4,8 @@ targets, run the coarse-to-fine optimize loop, emit progress.
 Counterpart of ``style_transfer_tpu/api.py`` (``StylizeConfig``,
 ``StyleTransfer``, ``stylize``, ``_build_objective``, ``_init_image``).
 PyTorch runs eagerly, so there is no program cache, no background compile
-and no donation: each scale captures its targets, then runs its chunks of
-optimizer steps in a Python loop and reads the per-step losses once per
+and no donation: each scale captures its targets, then queues its chunks of
+optimizer steps from a Python loop and reads the per-step losses once per
 chunk.
 
 The objective keeps the JAX fused-chain dispatch (``api.py:644-918``):
@@ -52,12 +52,36 @@ kernel's plain PyTorch version. ``use_fused=False`` runs the plain
 
 The optimizer is Adam or L-BFGS (``optim.py``; L-BFGS's zoom line search
 evaluates the same objective, kernels and all, at each trial point). The
-chunk loop carries the reference's per-chunk decision (``api.py:1433-1498``)
-in its order: the ``debug_checks`` sanitizer, the early-stop rule
-(``stop_tol`` / ``stop_patience``, decided before the callback so the last
-event of a run that stops early carries ``done=True``), then the callback,
-whose event's ``get_state`` is the resumable state of that chunk;
+chunk loop is the reference's (``api.py:1413-1556``): each chunk is queued
+on the device as one :class:`_PendingChunk`, and ``_process`` makes the
+per-chunk decision in the reference's order: the loss fetch, the
+``debug_checks`` sanitizer, the early-stop rule (``stop_tol`` /
+``stop_patience``, decided before the callback so the last event of a run
+that stops early carries ``done=True``), then the callback, whose event's
+``get_state`` is the resumable state of that chunk;
 ``stylize(resume_state=...)`` continues from it (``utils/ckpt.py``).
+
+Pipelined chunks (``StylizeConfig.pipeline_chunks``, on by default below
+:data:`REMAT_AUTO_PIXELS`): the loop queues chunks k+1 and k+2 before it
+processes chunk k (:data:`_PIPELINE_DEPTH`), so the card runs on while the
+host fetches, checks and reports; an early stop at chunk k drops the
+speculative chunks and restores chunk k's image and EMA from its record.
+Three things make that hold on the card. A step makes no host sync: the
+mean and std of the preprocessing are device tensors made once, and nothing
+else in the step reads the device (``chip_smoke.py`` counts the
+synchronizing calls with ``torch.cuda.set_sync_debug_mode``). Each fetch
+waits for its own chunk only: the losses go to a pinned host buffer by an
+asynchronous copy queued behind the chunk's last step, and ``_process``
+waits on the chunk's CUDA event; ``get_image`` and ``get_state`` copy on a
+side stream that waits on that event, not on the compute stream, where a
+``.cpu()`` would wait for the chunks queued after it. And the callback runs
+on a worker thread (:class:`_CallbackSink`) while the loop queues the next
+chunk: the reference queues a chunk as one program, but an eager chunk is
+thousands of launches, and CUDA blocks a launch once 1021 are pending
+(measured on the H100, ``chip_smoke.py`` phase pipeline), a few steps of a
+2048^2 chunk, so a host busy in a callback would soon let the card run dry.
+Pipelined and sequential runs give the same bits: the same kernels run in
+the same order on one stream.
 
 ``StylizeConfig.remat`` is the reference's gradient rematerialization
 (``api.py:153-163, 602-619, 664``): each kernel call of the chain and of
@@ -71,9 +95,10 @@ residuals across the step; only the handoffs between kernels stay live.
 (:data:`REMAT_AUTO_PIXELS`, :data:`REMAT_AUTO_PIXELS_FUSED`). Target capture
 runs under ``torch.no_grad()`` and takes no checkpoint.
 
-Left out (ROADMAP.md): pipelined chunks and background compiles, grid
-snapping and the 2^31 TPU resolution ceiling, meshes, and the
-``packed_block*`` switches (the chain engages by its structural gates alone).
+Left out (ROADMAP.md): background compiles (``warm_compile``: the port
+compiles nothing per scale), grid snapping and the 2^31 TPU resolution
+ceiling, meshes, and the ``packed_block*`` switches (the chain engages by
+its structural gates alone).
 """
 
 from __future__ import annotations
@@ -82,7 +107,9 @@ import dataclasses
 import functools
 import time
 import warnings
-from typing import Dict, Optional, Sequence, Tuple, Union
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -147,6 +174,13 @@ class StylizeConfig:
     # activation requested beyond conv1_1's Gram; else it changes nothing but
     # still switches the chain off, as in the reference).
     fused_block1: bool = False
+    # Pipeline device chunks: queue chunks k+1 and k+2 before fetching chunk
+    # k's losses, so the card does not wait for the per-chunk host work (the
+    # loss fetch, the callbacks). The same bits as the sequential loop: an
+    # early stop restores the stopping chunk's state from its record. None =
+    # auto: on below REMAT_AUTO_PIXELS, where the records' image-sized
+    # buffers (image, Adam's moments, EMA, display image) cost little.
+    pipeline_chunks: Optional[bool] = None
     # Sanitizer: verify every fetched loss term is finite and raise with run
     # coordinates otherwise. Host-side only: the steps are unchanged.
     debug_checks: bool = False
@@ -189,6 +223,145 @@ REMAT_AUTO_PIXELS = 35_850_000
 #: The same where the full kernel chain carries it
 #: (:meth:`StyleTransfer._full_chain_dispatches`).
 REMAT_AUTO_PIXELS_FUSED = 79_960_000
+
+
+def _pipeline_auto(cfg: StylizeConfig, pixels: int) -> bool:
+    """Whether a scale of ``pixels`` pixels pipelines its chunks (JAX
+    ``_pipeline_auto``, ``api.py:258-268``): ``cfg.pipeline_chunks``, or for
+    ``None`` below :data:`REMAT_AUTO_PIXELS`, where the records' image-sized
+    buffers leave the card's memory headroom alone. Keyed, as in the
+    reference, to the plain path's threshold and not the full chain's."""
+    if cfg.pipeline_chunks is not None:
+        return cfg.pipeline_chunks
+    return pixels < REMAT_AUTO_PIXELS
+
+
+#: Chunks queued beyond the one being processed in the pipelined loop (JAX
+#: ``_PIPELINE_DEPTH``, ``api.py:271-277``). Each holds one record's buffers.
+_PIPELINE_DEPTH = 2
+
+
+class _HostEvent:
+    """The CPU's stand-in for a chunk's ``torch.cuda.Event``: a CPU op has
+    finished when it returns, so the work queued before the event is done
+    when it is made; it keeps the host clock's time of that moment."""
+
+    def __init__(self):
+        self.seconds = time.perf_counter()
+
+    def synchronize(self) -> None:
+        pass
+
+    def elapsed_time(self, end: "_HostEvent") -> float:
+        """Milliseconds from this event to ``end``."""
+        return (end.seconds - self.seconds) * 1e3
+
+
+@dataclasses.dataclass
+class _PendingChunk:
+    """A queued optimizer chunk that the loop has not processed yet (JAX
+    ``_PendingChunk``, ``api.py:280-298``): its step count, the iterations
+    done at its end, its per-step loss terms (``keys``, and ``loss_host``:
+    a (terms, steps) host tensor, pinned on the card and filled by an
+    asynchronous copy), the clipped display image (``snap``, made only when
+    there is a callback), the chunk-end image, EMA and optimizer state, and
+    ``event``, which completes after the chunk's last kernel (a
+    ``torch.cuda.Event``; :class:`_HostEvent` on the CPU).
+
+    The record holds references where the reference's holds
+    ``optimization_barrier`` copies: nothing the loop runs writes a tensor
+    in place (the optimizers return new states), so a record keeps its
+    chunk's tensors however many chunks run after it."""
+
+    n: int
+    done_iters: int
+    keys: Tuple[str, ...]
+    loss_host: torch.Tensor
+    snap: Optional[torch.Tensor]
+    image: torch.Tensor
+    ema: Optional[torch.Tensor]
+    opt_state: object
+    event: object
+
+
+def _fetch_losses(rows) -> Tuple[Tuple[str, ...], torch.Tensor]:
+    """Starts a chunk's one host read: the per-step loss terms of ``rows``
+    stacked on the device as (terms, steps). On the card the copy into a
+    pinned host buffer is queued behind the chunk's steps and returns at
+    once; the buffer holds the values once the chunk's event completes. On
+    the CPU the stack is the host tensor."""
+    keys = tuple(rows[0])
+    stacked = torch.stack([torch.stack([r[k] for r in rows]) for k in keys])
+    if stacked.device.type != "cuda":
+        return keys, stacked
+    host = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
+    host.copy_(stacked, non_blocking=True)
+    return keys, host
+
+
+def _chunk_event(device: torch.device):
+    """A timing event recorded on the current stream of ``device``: it
+    completes after everything queued so far (:class:`_HostEvent` on the
+    CPU)."""
+    if device.type != "cuda":
+        return _HostEvent()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _to_host(tensors: List[torch.Tensor], *, event, stream) -> List[np.ndarray]:
+    """Numpy copies of ``tensors``, which the chunk that ends in ``event``
+    wrote. On the card they are copied on ``stream``, the side copy stream,
+    once ``event`` has completed: each copy waits for that chunk only, not
+    for the chunks queued after it on the compute stream, and any thread may
+    call this (the web monitor's executor does). A ``.cpu()`` there waits
+    for the side stream alone, and ``tensors`` holds the sources until it
+    returns, so the allocator cannot give their memory to a later chunk while
+    they are read. On the CPU the arrays share the tensors' memory, which
+    nothing writes in place."""
+    if stream is None:
+        return [t.detach().numpy() for t in tensors]
+    with torch.cuda.stream(stream):
+        stream.wait_event(event)
+        return [t.detach().cpu().numpy() for t in tensors]
+
+
+class _CallbackSink:
+    """Hands the progress events of one ``stylize`` call to its callback, in
+    order. For a sequential scale it calls the callback on the loop's thread
+    before the next chunk is queued. For a pipelined scale it calls it on one
+    worker thread, so the loop queues the next chunk meanwhile: an eager
+    chunk is thousands of launches, and CUDA holds only a bounded
+    number pending, so the loop that stops queueing for a callback soon
+    leaves the card without work (PERF.md). One event at a time is out:
+    handing over the next waits for the previous callback and raises what
+    it raised, as :meth:`wait` does."""
+
+    def __init__(self, callback: Callback):
+        self.callback = callback
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._pending = None
+
+    def __call__(self, event: ProgressEvent, *, threaded: bool) -> None:
+        self.wait()
+        if not threaded:
+            self.callback(event)
+            return
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="stylize-callback")
+        self._pending = self._pool.submit(self.callback, event)
+
+    def wait(self) -> None:
+        """Returns when the last event handed over has been delivered."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+    def close(self) -> None:
+        """Stops the worker thread after the callback it runs, if any."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
 
 
 def _checkpointed(fn):
@@ -246,6 +419,13 @@ class StyleTransfer:
         self.device = torch.device(device)
         self.mean = np.asarray(imgio.IMAGENET_MEAN if mean is None else mean, np.float32)
         self.std = np.asarray(imgio.IMAGENET_STD if std is None else std, np.float32)
+        # the preprocessing's constants on the device, made once (the JAX
+        # package folds them into its programs): an evaluation copies nothing
+        # from the host
+        self._mean = torch.as_tensor(self.mean).to(self.device)
+        self._std = torch.as_tensor(self.std).to(self.device)
+        # where get_image / get_state copy a chunk's tensors to the host
+        self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.pooling = pooling
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
@@ -261,7 +441,7 @@ class StyleTransfer:
     def _features(self, image: torch.Tensor, layers: Sequence[str],
                   remat: bool = False) -> Dict[str, torch.Tensor]:
         """Preprocess + plain VGG forward on an NHWC [0,1] image."""
-        x = imgio.preprocess(image, self.mean, self.std)
+        x = imgio.preprocess(image, self._mean, self._std)
         return vgg_mod.extract_features(
             self.params, x, layers, pooling=self.pooling,
             compute_dtype=self.compute_dtype, arch=self.arch, remat=remat,
@@ -383,7 +563,7 @@ class StyleTransfer:
         if not (self._block1_structurally_eligible(content_layers, style_layers) and _even(image)):
             return self._features(image, all_layers, remat), {}
         ck = _checkpointed if remat else (lambda f: f)
-        x = imgio.preprocess(image, self.mean, self.std).to(self.compute_dtype)
+        x = imgio.preprocess(image, self._mean, self._std).to(self.compute_dtype)
         grams: Dict[str, torch.Tensor] = {}
         pool1, g = ck(B1.block1_packed)(x, *self._weights("conv1_1", "conv1_2"))
         if "conv1_1" in style:
@@ -449,7 +629,7 @@ class StyleTransfer:
         if not _even(image):
             return self._features(image, all_layers, remat), {}
         ck = _checkpointed if remat else (lambda f: f)
-        x = imgio.preprocess(image, self.mean, self.std).to(self.compute_dtype)
+        x = imgio.preprocess(image, self._mean, self._std).to(self.compute_dtype)
         pool1, g1 = ck(B1.block1_full)(x, *self._weights("conv1_1", "conv1_2"))
         deeper = tuple(l for l in all_layers if l != "conv1_1")
         feats: Dict[str, torch.Tensor] = {}
@@ -572,114 +752,180 @@ class StyleTransfer:
                 raise ValueError(
                     f"checkpoint at scale {resume_scale} but plan has {len(plan)} scales"
                 )
-        for scale in plan:
-            if scale.index < resume_scale:
-                continue
-            h, w = scale.size
-            content_s = imgio.resize_image(content_t, (h, w))
-            c_targets = self._capture_content(cfg, content_s)
-            gram_list: Dict[str, list] = {l: [] for l in cfg.style_layers}
-            for st in style_ts:
-                st_s = imgio.resize_image(st, _style_size(st.shape[1:3], (h, w), cfg.style_scale))
-                grams = self._capture_style(cfg, st_s)
-                for l in cfg.style_layers:
-                    gram_list[l].append(grams[l])
-            s_targets = {l: L.blend_grams(gs, blend) for l, gs in gram_list.items()}
+        sink = _CallbackSink(callback) if callback is not None else None
+        try:
+            for scale in plan:
+                if scale.index < resume_scale:
+                    continue
+                h, w = scale.size
+                content_s = imgio.resize_image(content_t, (h, w))
+                c_targets = self._capture_content(cfg, content_s)
+                gram_list: Dict[str, list] = {l: [] for l in cfg.style_layers}
+                for st in style_ts:
+                    st_s = imgio.resize_image(
+                        st, _style_size(st.shape[1:3], (h, w), cfg.style_scale))
+                    grams = self._capture_style(cfg, st_s)
+                    for l in cfg.style_layers:
+                        gram_list[l].append(grams[l])
+                s_targets = {l: L.blend_grams(gs, blend) for l, gs in gram_list.items()}
 
-            step, optimizer = make_step_fn(
-                lambda im, c=c_targets, s=s_targets: objective(im, c, s), cfg.optimizer
-            )
-            if scale.index == resume_scale:
-                image = self._state_image(resume_state["image"])
-                if tuple(image.shape) != (1, h, w, 3):
-                    raise ValueError(
-                        f"checkpoint image shape {tuple(image.shape)} does not match "
-                        f"scale {scale.index} shape (1, {h}, {w}, 3)"
-                    )
-                opt_state = restore_opt_state(optimizer.init(image),
-                                              list(resume_state["opt_state_leaves"]))
-                done_iters = min(resume_iters, scale.iterations)
-                if averaging:
-                    ema = self._state_image(resume_state.get("ema", resume_state["image"]))
-            else:
-                if image is None:
-                    image = self._init_image(cfg, content_s, init_image, (h, w))
-                    ema = image.clone() if averaging else None
+                step, optimizer = make_step_fn(
+                    lambda im, c=c_targets, s=s_targets: objective(im, c, s), cfg.optimizer
+                )
+                if scale.index == resume_scale:
+                    image = self._state_image(resume_state["image"])
+                    if tuple(image.shape) != (1, h, w, 3):
+                        raise ValueError(
+                            f"checkpoint image shape {tuple(image.shape)} does not match "
+                            f"scale {scale.index} shape (1, {h}, {w}, 3)"
+                        )
+                    opt_state = restore_opt_state(optimizer.init(image),
+                                                  list(resume_state["opt_state_leaves"]))
+                    done_iters = min(resume_iters, scale.iterations)
+                    if averaging:
+                        ema = self._state_image(resume_state.get("ema", resume_state["image"]))
                 else:
-                    image = imgio.resize_image(image, (h, w))
-                    if averaging:
-                        ema = imgio.resize_image(ema, (h, w))
-                # contiguous, as a resumed image is: one layout, the same sums
-                image = image.contiguous()
-                ema = ema.contiguous() if averaging else None
-                opt_state = optimizer.init(image)
-                done_iters = 0
+                    if image is None:
+                        image = self._init_image(cfg, content_s, init_image, (h, w))
+                        ema = image.clone() if averaging else None
+                    else:
+                        image = imgio.resize_image(image, (h, w))
+                        if averaging:
+                            ema = imgio.resize_image(ema, (h, w))
+                    # contiguous, as a resumed image is: one layout, the same sums
+                    image = image.contiguous()
+                    ema = ema.contiguous() if averaging else None
+                    opt_state = optimizer.init(image)
+                    done_iters = 0
 
-            # Nothing below writes a tensor in place (the optimizers return
-            # new states), so an event keeps its chunk's own image, EMA and
-            # state however many chunks run after it.
-            prev_mean, stall = None, 0
-            while done_iters < scale.iterations:
-                n = min(cfg.chunk_size, scale.iterations - done_iters)
-                t0 = time.perf_counter()
-                rows = []
-                for _ in range(n):
-                    image, opt_state, aux = step(image, opt_state)
-                    if averaging:
-                        ema = cfg.avg_decay * ema + (1.0 - cfg.avg_decay) * image
-                    rows.append(aux)
-                # one host read per chunk; it waits for the chunk's device work
-                losses = {
-                    k: torch.stack([r[k] for r in rows]).cpu().numpy() for k in rows[0]
-                }
-                dt = time.perf_counter() - t0
-                done_iters += n
+                pipeline = _pipeline_auto(cfg, h * w)
+                prev_mean, stall, t_prev, prev_event = None, 0, 0.0, None
 
-                if cfg.debug_checks:
-                    bad = {k: v for k, v in losses.items() if not np.isfinite(v).all()}
-                    if bad:
-                        raise FloatingPointError(
-                            f"non-finite loss terms {sorted(bad)} at scale "
-                            f"{scale.index} ({h}x{w}), iteration {done_iters}"
+                def _process(rec: _PendingChunk) -> bool:
+                    """Fetch a queued chunk's losses, run the sanitizer, the
+                    early-stop decision and the callback; True when the scale
+                    stops after this chunk."""
+                    nonlocal prev_mean, stall, prev_event
+                    rec.event.synchronize()  # this chunk's work, not the chunks queued after it
+                    fetched = rec.loss_host.numpy()
+                    losses = {k: fetched[i] for i, k in enumerate(rec.keys)}
+                    # dt: from the previous chunk's end to this one's, on the
+                    # card's clock. The reference reads it between its fetches,
+                    # which follow the chunks' ends while its host stays ahead;
+                    # an eager host blocks on the launch queue instead, and finds
+                    # the chunks it drains at a scale's end long done. A chunk
+                    # queued when no other was: the host's clock since then.
+                    if prev_event is None:
+                        dt = time.perf_counter() - t_prev
+                    else:
+                        dt = prev_event.elapsed_time(rec.event) / 1e3
+                    prev_event = rec.event
+
+                    if cfg.debug_checks:
+                        bad = {k: v for k, v in losses.items() if not np.isfinite(v).all()}
+                        if bad:
+                            raise FloatingPointError(
+                                f"non-finite loss terms {sorted(bad)} at scale "
+                                f"{scale.index} ({h}x{w}), iteration {rec.done_iters}"
+                            )
+
+                    # Early stop is decided BEFORE the callback, so the final
+                    # event of a run that stops early carries done=True.
+                    stop = False
+                    if cfg.stop_tol > 0:
+                        mean_loss = float(np.mean(losses["loss"]))
+                        if prev_mean is not None:
+                            rel = abs(prev_mean - mean_loss) / max(abs(prev_mean), 1e-12)
+                            stall = stall + 1 if rel < cfg.stop_tol else 0
+                            stop = stall >= cfg.stop_patience
+                        prev_mean = mean_loss
+
+                    if sink is not None:
+                        fetch = functools.partial(_to_host, event=rec.event,
+                                                  stream=self._copy_stream)
+                        sink(
+                            ProgressEvent(
+                                scale_index=scale.index,
+                                num_scales=len(plan),
+                                size=(h, w),
+                                iteration=rec.done_iters,
+                                total_iterations=scale.iterations,
+                                losses=losses,
+                                its_per_sec=rec.n / dt if dt > 0 else float("inf"),
+                                get_image=lambda s=rec.snap, f=fetch: f([s])[0],
+                                done=scale.index == plan[-1].index
+                                and (rec.done_iters >= scale.iterations or stop),
+                                get_state=functools.partial(
+                                    _resumable_state, rec.image, rec.opt_state, rec.done_iters,
+                                    scale.index, rec.ema, fetch),
+                            ),
+                            threaded=pipeline,
                         )
+                    return stop
 
-                # Early stop is decided BEFORE the callback, so the final event
-                # of a run that stops early carries done=True.
-                stop = False
-                if cfg.stop_tol > 0:
-                    mean_loss = float(np.mean(losses["loss"]))
-                    if prev_mean is not None:
-                        rel = abs(prev_mean - mean_loss) / max(abs(prev_mean), 1e-12)
-                        stall = stall + 1 if rel < cfg.stop_tol else 0
-                        stop = stall >= cfg.stop_patience
-                    prev_mean = mean_loss
-
-                if callback is not None:
-                    snap = (ema if averaging else image)[0].clamp(0.0, 1.0)
-                    callback(
-                        ProgressEvent(
-                            scale_index=scale.index,
-                            num_scales=len(plan),
-                            size=(h, w),
-                            iteration=done_iters,
-                            total_iterations=scale.iterations,
-                            losses=losses,
-                            its_per_sec=n / dt if dt > 0 else float("inf"),
-                            get_image=lambda s=snap: s.cpu().numpy(),
-                            done=scale.index == plan[-1].index
-                            and (done_iters >= scale.iterations or stop),
-                            get_state=functools.partial(
-                                _resumable_state, image, opt_state, done_iters, scale.index,
-                                ema if averaging else None),
-                        )
-                    )
-                if stop:
-                    break
+                # Up to _PIPELINE_DEPTH chunks stay queued beyond the one being
+                # processed; sequentially each is processed before the next is
+                # queued. Nothing the loop runs writes a tensor in place (the
+                # optimizers return new states), so each record keeps its own
+                # chunk's image, EMA and state however many chunks follow it:
+                # the rollback below and get_state rely on that.
+                queue: deque = deque()
+                depth = _PIPELINE_DEPTH if pipeline else 0
+                stopped = False
+                while done_iters < scale.iterations:
+                    n = min(cfg.chunk_size, scale.iterations - done_iters)
+                    if not queue:
+                        t_prev, prev_event = time.perf_counter(), None
+                    rec = self._dispatch_chunk(step, image, ema, opt_state, n=n,
+                                               done_iters=done_iters, decay=cfg.avg_decay,
+                                               snapshot=sink is not None)
+                    image, ema, opt_state = rec.image, rec.ema, rec.opt_state
+                    done_iters = rec.done_iters
+                    queue.append(rec)
+                    while len(queue) > depth:
+                        rec = queue.popleft()
+                        if _process(rec):
+                            # early stop at this chunk: drop the speculative
+                            # chunks queued after it, continue from its state
+                            image, ema, done_iters = rec.image, rec.ema, rec.done_iters
+                            queue.clear()
+                            stopped = True
+                            break
+                    if stopped:
+                        break
+                # drain: the scale is complete either way; stop decisions are moot
+                while queue:
+                    _process(queue.popleft())
+                if sink is not None:
+                    sink.wait()  # every event of this scale is out before the next scale
+        finally:
+            if sink is not None:
+                sink.close()
 
         result = ema if averaging else image
         if output_dtype == "uint8":
             return imgio.quantize_u8(result).cpu().numpy()
         return np.clip(result[0].detach().cpu().numpy(), 0.0, 1.0)
+
+    def _dispatch_chunk(self, step, image, ema, opt_state, *, n: int, done_iters: int,
+                        decay: float, snapshot: bool) -> _PendingChunk:
+        """Queues one chunk: ``n`` optimizer steps with the EMA (``ema`` is
+        None without averaging), the clipped display image when
+        ``snapshot``, the start of its loss fetch and its event. Nothing here
+        reads the device (an L-BFGS step's line search excepted, once per
+        line-search step), so on the card this returns once the work is
+        queued. Returns the chunk's record."""
+        rows = []
+        for _ in range(n):
+            image, opt_state, aux = step(image, opt_state)
+            if ema is not None:
+                ema = decay * ema + (1.0 - decay) * image
+            rows.append(aux)
+        snap = (image if ema is None else ema)[0].clamp(0.0, 1.0) if snapshot else None
+        keys, loss_host = _fetch_losses(rows)
+        return _PendingChunk(n=n, done_iters=done_iters + n, keys=keys, loss_host=loss_host,
+                             snap=snap, image=image, ema=ema, opt_state=opt_state,
+                             event=_chunk_event(image.device))
 
     # ---------------------------------------------------------------- misc
 
@@ -703,14 +949,15 @@ class StyleTransfer:
         raise ValueError(f"unknown init mode {cfg.init!r}")
 
 
-def _resumable_state(image, opt_state, iteration, scale_index, ema) -> dict:
-    """``ProgressEvent.get_state()``: the chunk's state as numpy arrays."""
+def _resumable_state(image, opt_state, iteration, scale_index, ema, fetch) -> dict:
+    """``ProgressEvent.get_state()``: the chunk's state as numpy arrays,
+    copied by ``fetch`` (:func:`_to_host` bound to the chunk's event)."""
     state = {
-        "image": image.detach().cpu().numpy(),
-        "opt_state_leaves": flatten_opt_state(opt_state),
+        "image": fetch([image])[0],
+        "opt_state_leaves": flatten_opt_state(opt_state, fetch),
         "scale_index": np.asarray(scale_index),
         "iteration": np.asarray(iteration),
     }
     if ema is not None:
-        state["ema"] = ema.detach().cpu().numpy()
+        state["ema"] = fetch([ema])[0]
     return state

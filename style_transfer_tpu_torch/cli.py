@@ -13,6 +13,7 @@ Where each flag goes:
   ``--stop-tol``, ``--stop-patience``, ``--chunk-size``, ``--debug-checks``,
   ``--fused-block1`` and ``--remat`` map 1:1 onto ``StylizeConfig`` fields;
   ``--unfused`` is ``use_fused=False``, the plain path everywhere;
+  ``--no-pipeline`` is ``pipeline_chunks=False`` (no flag: ``None``, auto);
 - ``--optimizer``, ``--lr``, ``--lbfgs-memory``, ``--linesearch-tol``:
   ``OptimizerSpec``;
 - ``--weights``: ``models.weights.load_npz``; ``--random-weights`` with
@@ -40,8 +41,6 @@ flag asks for what the port does not do:
   engages by its structural gates alone, so ``on`` and ``off`` exit 2;
 - ``--grid-snap``: ``auto`` and ``off`` keep the exact sizes (the port never
   snaps: the 16-row grid is a TPU device); ``on`` exits 2;
-- ``--no-pipeline``: accepted; the port's chunks always run in sequence,
-  which is what the flag asks for;
 - ``--debug-nans``: ``torch.autograd.set_detect_anomaly(True, check_nan=True)``
   for the run, the port's form of ``jax_debug_nans``;
 - ``--profile-dir``: ``torch.profiler.profile`` (CPU, and CUDA on the card)
@@ -162,8 +161,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "storing activations (auto: on from a pixel count "
                         "measured on the H100, see api.REMAT_AUTO_PIXELS)")
     g.add_argument("--no-pipeline", action="store_true",
-                   help="process chunks sequentially (the port always does: "
-                        "accepted for the reference's command lines)")
+                   help="process chunks sequentially instead of queueing two "
+                        "chunks ahead (the same bits; only host scheduling "
+                        "differs)")
     g.add_argument("--packed-block1", choices=["auto", "on", "off"], default="auto",
                    help="the reference's block-1 kernel switch; the port's chain "
                         "engages by its structural gates alone: auto only")
@@ -347,6 +347,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         stop_patience=args.stop_patience,
         use_fused=not args.unfused,
         fused_block1=args.fused_block1,
+        pipeline_chunks=False if args.no_pipeline else None,
         debug_checks=args.debug_checks,
         remat={"auto": None, "on": True, "off": False}[args.remat],
     )

@@ -37,9 +37,15 @@ def _leaf_array(leaf) -> np.ndarray:
     return np.asarray(leaf, np.int32)
 
 
-def flatten_opt_state(opt_state) -> List[np.ndarray]:
-    """The optimizer state's leaves, in optax's order, as numpy arrays."""
-    return [_leaf_array(l) for l in state_leaves(opt_state)]
+def flatten_opt_state(opt_state, fetch=None) -> List[np.ndarray]:
+    """The optimizer state's leaves, in optax's order, as numpy arrays.
+    ``fetch`` copies a list of tensors to numpy arrays (the optimize loop's
+    copies on a side stream); by default each leaf's ``.cpu()``."""
+    leaves = state_leaves(opt_state)
+    if fetch is None:
+        return [_leaf_array(l) for l in leaves]
+    arrays = iter(fetch([l for l in leaves if isinstance(l, torch.Tensor)]))
+    return [next(arrays) if isinstance(l, torch.Tensor) else _leaf_array(l) for l in leaves]
 
 
 def restore_opt_state(template, leaves: List[np.ndarray]):

@@ -90,18 +90,28 @@ def to_nhwc(arr, device: Optional[torch.device] = None) -> torch.Tensor:
     return t.to(torch.float32)
 
 
+def _constant(v, like: torch.Tensor, name: str) -> torch.Tensor:
+    """A per-channel constant to broadcast against ``like``. A tensor is used
+    as it is and must already lie on ``like``'s device in its dtype (no copy:
+    ``StyleTransfer`` makes its own once, so an objective evaluation on the
+    card makes no host-to-device copy, which would wait for the device);
+    anything else is copied there."""
+    if not isinstance(v, torch.Tensor):
+        return torch.as_tensor(np.asarray(v, np.float32), dtype=like.dtype, device=like.device)
+    if v.device != like.device or v.dtype != like.dtype:
+        raise ValueError(f"{name} must be a {like.dtype} tensor on {like.device}, "
+                         f"got {v.dtype} on {v.device}")
+    return v
+
+
 def preprocess(image: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
     """RGB [0,1] NHWC -> network input space."""
-    mean = torch.as_tensor(np.asarray(mean, np.float32), dtype=image.dtype, device=image.device)
-    std = torch.as_tensor(np.asarray(std, np.float32), dtype=image.dtype, device=image.device)
-    return (image - mean) / std
+    return (image - _constant(mean, image, "mean")) / _constant(std, image, "std")
 
 
 def deprocess(x: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
     """Inverse of :func:`preprocess`."""
-    mean = torch.as_tensor(np.asarray(mean, np.float32), dtype=x.dtype, device=x.device)
-    std = torch.as_tensor(np.asarray(std, np.float32), dtype=x.dtype, device=x.device)
-    return x * std + mean
+    return x * _constant(std, x, "std") + _constant(mean, x, "mean")
 
 
 def _lanczos3(x: torch.Tensor) -> torch.Tensor:

@@ -27,9 +27,15 @@ class ProgressEvent:
     iteration: int  # iterations completed at this scale (cumulative)
     total_iterations: int  # planned iterations at this scale
     losses: Dict[str, np.ndarray]  # per-iteration loss terms for this chunk
-    # Wall-clock rate of this chunk (host clock, ending in the loss read,
-    # which waits for the device). Each scale's FIRST chunk also carries the
-    # target capture and first-launch costs; steady-state consumers drop it.
+    # Wall-clock rate of this chunk: its steps over the time from the end of
+    # the previous chunk to the end of this one (the card's clock; the host's
+    # on the CPU), idle gaps included. A chunk queued when no other was, each
+    # scale's FIRST and every sequential one, is timed on the host's clock
+    # from its queueing to its loss read instead, so a sequential rate leaves
+    # out the callbacks, and a first chunk also carries the target capture,
+    # the first launches (with remat, the first checkpoint's set-up) and,
+    # pipelined, the queueing of the two chunks after it; steady-state
+    # consumers drop it.
     its_per_sec: float
     # Fetches the current image as float RGB (H, W, 3) in [0, 1].
     get_image: Callable[[], np.ndarray]

@@ -386,3 +386,48 @@ def test_cuda_fp32_compute_refuses_the_chain(cuda_device):
     out = st.stylize(content, style, StylizeConfig(use_fused=False, **cfg))
     assert [c.n for c in counters] == before
     assert out.shape == (64, 64, 3) and np.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_cuda_pipelined_chunks_match_sequential(cuda_device):
+    """On the card a queued chunk's record holds a ``torch.cuda.Event`` and a
+    pinned loss buffer, and queueing a chunk makes no synchronizing call;
+    pipelined and sequential runs give the same image, losses and
+    ``get_image()``, and an image fetched after later chunks ran is still its
+    chunk's."""
+    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig, api
+
+    rng = np.random.RandomState(0)
+    content = rng.rand(128, 128, 3).astype(np.float32)
+    style = rng.rand(128, 128, 3).astype(np.float32)
+    st = StyleTransfer(device=cuda_device)
+    cfg = dict(size=128, min_scale=64, iterations=(12,), chunk_size=3)
+    real, records = st._dispatch_chunk, []
+
+    def dispatch(*args, **kw):  # no callback runs meanwhile: the mode is global
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            records.append(real(*args, **kw))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return records[-1]
+
+    st._dispatch_chunk = dispatch
+    st.stylize(content, style, StylizeConfig(pipeline_chunks=True, **cfg))
+    del st._dispatch_chunk
+    assert len(records) == 8
+    for rec in records:
+        assert isinstance(rec.event, torch.cuda.Event) and rec.loss_host.is_pinned()
+    runs = {}
+    for pipelined in (False, True):
+        events, images = [], []
+        out = st.stylize(content, style, StylizeConfig(pipeline_chunks=pipelined, **cfg),
+                         callback=lambda ev: (events.append(ev), images.append(ev.get_image())))
+        runs[pipelined] = (out, events, images)
+    (a, ea, ia), (b, eb, ib) = runs[False], runs[True]
+    assert np.array_equal(a, b) and len(ea) == len(eb) == 8
+    for x, y, u, v in zip(ea, eb, ia, ib):
+        assert (x.scale_index, x.iteration, x.done) == (y.scale_index, y.iteration, y.done)
+        assert all(np.array_equal(x.losses[k], y.losses[k]) for k in x.losses)
+        assert np.array_equal(u, v) and np.array_equal(y.get_image(), v)
+    assert api._pipeline_auto(StylizeConfig(), 128 * 128)
