@@ -140,15 +140,31 @@ Phases, one JSON object per line on stdout:
    ways; configuration 2
    through ``cli.main`` with and without ``--no-pipeline``; the peak memory
    both ways at 2048^2 and 4096^2.
+15. mesh — the spatial mesh (``style_transfer_tpu_torch/parallel``) on
+   meshes that repeat the one card: at 2048x2048 with 2, 4 and 8 shards, on
+   the natural route and with pairs and ``gram_tail`` forced, the loss terms
+   and image gradient against the unsharded chain and the plain fp32
+   witness, launches per kernel and per shard, an Adam step's wall and
+   device ms and peak memory; the five sharded kernels alone at that
+   scale's shapes with 8 shards against the unsharded kernels, with both
+   times; 512x512 with 8 shards; configuration 5 through ``stylize()``
+   (3840x2160 over its five scales, ``--steps`` a scale, 8 shards) against
+   the unsharded run, with no synchronizing call in any Adam chunk;
+   ``parallel.dryrun.dryrun_multichip(8, [cuda:0] * 8)``; and, where more
+   than one card is visible, parts 1 and 3 over real devices (else a line
+   says they did not run).
 
 Each stylize phase, each arm of the objective phase and the lbfgs phase's
 configuration-4 run, each ``cli.main`` run of the cli phase and each run of
-the pipeline phase's bit-equality and gap parts set every launch count to 0
-just before they run and read them all just after. Then a
+the pipeline phase's bit-equality and gap parts and each objective evaluation
+of the mesh phase set every launch count to 0 just before they run and read
+them all just after. Then a
 ``{"kernels": [...]}`` summary line (eleven kernels, each with the launches
 of the phase whose path runs it, forward and backward kernels alike, its
 error, its time, the plain version's, the library call's and its bound, for
-the losses the two-pass bound too), the nvidia-smi line,
+the losses the two-pass bound too; the five chain kernels that run per shard
+also with ``mesh``: their launches in an 8-shard 2048^2 evaluation and their
+sharded and unsharded times and bounds alone), the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed phase raises: the
 script exits nonzero and prints no ok line. Without a CUDA device it exits
 with code 2 before doing anything else.
@@ -164,6 +180,7 @@ every kernel.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -2649,8 +2666,506 @@ def pipeline_check(torch, params, mean, std, steps):
         raise AssertionError(f"pipeline: {failures}")
 
 
+# ---------------------------------------------------------------- phase 15: mesh
+
+#: The shard counts of the mesh phase's objective parts; the one card
+#: repeats in each mesh.
+MESH_SHARDS = (2, 4, 8)
+#: The five chain kernels that run per shard under a mesh.
+MESH_KERNELS = ("block1_packed", "conv_pair", "conv_single", "gram_tail", "conv_gram")
+#: The mesh phase's sizes: the large and the small objective's side, and
+#: configuration 5's content (H, W) with its smallest scale's long side.
+MESH_SIDE, MESH_SMALL_SIDE, MESH_TINY_SIDE = 2048, 512, 128
+CONFIG5_HW, CONFIG5_MIN_SCALE = (2160, 3840), 240
+#: Configuration 5's 1920 px scale: pool3 has odd rows, so block 4 and
+#: conv5_1 run the plain sharded VGG (cuDNN per shard) and ``pallas_gram``.
+CONFIG5_ODD_HW = (1080, 1920)
+
+
+class _ShardLaunches:
+    """While active, records the forward launches each chain kernel makes on
+    each shard: ``parallel.mesh.map_shards`` calls the kernel once per shard,
+    in shard order, and the launch counts are read around each call. The
+    backward's launches come later, from autograd, and count in the totals
+    only."""
+
+    def __init__(self):
+        self.per = {}
+
+    def __enter__(self):
+        from style_transfer_tpu_torch.parallel import mesh as M
+
+        self._real, counters = M.map_shards, _counters()
+
+        def spy(fn, xs, halo, **kw):
+            index = iter(range(len(xs)))
+
+            def counted(*a):
+                i = next(index)
+                before = {k: c.n for k, c in counters.items()}
+                out = fn(*a)
+                for k, c in counters.items():
+                    if c.n > before[k]:
+                        row = self.per.setdefault(k, [0] * len(xs))
+                        row += [0] * (len(xs) - len(row))
+                        row[i] += c.n - before[k]
+                return out
+
+            return self._real(counted, xs, halo, **kw)
+
+        M.map_shards = spy
+        return self
+
+    def __exit__(self, *exc):
+        from style_transfer_tpu_torch.parallel import mesh as M
+
+        M.map_shards = self._real
+
+
+def _mesh_setup(torch, st, cfg, content, style):
+    from style_transfer_tpu_torch.api import _style_size
+    from style_transfer_tpu_torch.utils import imgio
+
+    h, w = content.shape[:2]
+    c = st._capture_content(cfg, torch.from_numpy(content)[None].cuda())
+    s_img = imgio.resize_image(torch.from_numpy(style)[None].cuda(),
+                               _style_size(style.shape[:2], (h, w), cfg.style_scale))
+    return c, st._capture_style(cfg, s_img)
+
+
+def _mesh_objective(torch, st, cfg, content, style, image_np, *, time_it=True):
+    """The objective of ``st`` at one image: its loss terms and image
+    gradient, the launches of one evaluation with its backward (every count
+    set to 0 just before and read just after), the forward launches per
+    shard, the route, and, with ``time_it``, an Adam step's wall and device
+    ms and the peak device memory of a step."""
+    from style_transfer_tpu_torch.optim import make_step_fn
+
+    c, s = _mesh_setup(torch, st, cfg, content, style)
+    objective = st._build_objective(cfg)
+    image = torch.from_numpy(image_np)[None].cuda()
+    counters = _counters()
+    for k in counters.values():
+        k.n = 0
+    with _ShardLaunches() as spy:
+        x = image.clone().requires_grad_(True)
+        loss, terms = objective(x, c, s)
+        (g,) = torch.autograd.grad(loss, x)
+    torch.cuda.synchronize()
+    out = {"terms": {k: float(v.detach()) for k, v in terms.items()}, "grad": g.detach().cpu(),
+           "launches": {k: v.n for k, v in counters.items() if v.n},
+           "forward_launches_per_shard": spy.per, "route": [list(p) for p in st.last_route]}
+    if time_it:
+        step, opt = make_step_fn(lambda im: objective(im, c, s), cfg.optimizer)
+        state = [image, opt.init(image)]
+
+        def one():
+            state[0], state[1], _ = step(state[0], state[1])
+
+        one()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        one()
+        torch.cuda.synchronize()
+        out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        out["peak_above_start_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        out["step_wall_ms"] = statistics.median(_wall_ms(torch, one, reps=5, warmup=1))
+        (out["step_device_ms"], out["device_launches_per_step"],
+         out["device_ms_by_kernel"]) = _device_by_name(torch, one)
+    return out
+
+
+def _device_by_name(torch, fn, reps: int = 3, top: int = 12):
+    """``(ms, launches, {name: ms})`` per call of ``fn`` on the card: the
+    summed device time of the profiler's kernels and copies, their count,
+    and the ``top`` names by time (each name cut to 70 characters)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):  # a trace now and then comes back without device events
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by, n = {}, 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                key = e.name[:70]
+                by[key] = by.get(key, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+                n += 1
+        if by:
+            names = dict(sorted(by.items(), key=lambda kv: -kv[1])[:top])
+            return sum(by.values()), n / reps, names
+    raise RuntimeError("the profiler recorded no device time on the card in three traces")
+
+
+def _compare(a, b):
+    """Relative errors of ``a``'s loss terms and image gradient against
+    ``b``'s, and the gradients' cosine (in float64)."""
+    rels = {k: abs(a["terms"][k] - b["terms"][k]) / max(abs(b["terms"][k]), 1e-30)
+            for k in b["terms"]}
+    ga, gb = a["grad"].double().flatten(), b["grad"].double().flatten()
+    return {"term_rel": rels, "grad_rel": float((ga - gb).norm() / gb.norm()),
+            "grad_cos": float((ga @ gb) / (ga.norm() * gb.norm()))}
+
+
+@contextlib.contextmanager
+def _route(route):
+    """``natural``: the size rule's forms; ``forced``: every two-conv segment
+    as the fused pair and conv5_1 as ``gram_tail`` (the forms the 2048^2
+    scale does not pick itself)."""
+    from style_transfer_tpu_torch.ops.kernels import dispatch
+
+    saved = dispatch.segment_impl, dispatch.gram_tail_impl
+    if route == "forced":
+        dispatch.segment_impl = lambda *a, **k: "pair"
+        dispatch.gram_tail_impl = lambda *a, **k: "gram_tail"
+    try:
+        yield
+    finally:
+        dispatch.segment_impl, dispatch.gram_tail_impl = saved
+
+
+def _mesh_objectives(torch, params, mean, std, *, hw, shards, routes, devices, witness):
+    """Parts 1 to 3 of :func:`mesh_check`: at ``hw`` = (H, W) and per
+    route, the unsharded chain, then a mesh of each count of ``shards``
+    (devices taken from ``devices``), each held against the unsharded chain
+    and the plain fp32 witness; returns the failures and each run's
+    launches by ``(route, shards)``."""
+    import numpy as np
+
+    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
+    from style_transfer_tpu_torch.ops.kernels import tolerances as T
+    from style_transfer_tpu_torch.parallel import mesh as M
+
+    h, w = hw
+    r = np.random.RandomState(h)
+    content = r.rand(h, w, 3).astype(np.float32)
+    style = r.rand(h, w, 3).astype(np.float32)
+    image = np.clip(content + 0.1 * r.randn(h, w, 3), 0, 1).astype(np.float32)
+    cfg = StylizeConfig(size=(h, w))
+    failures, launches = [], {}
+    wit = None
+    if witness:
+        st32 = StyleTransfer(params, mean=mean, std=std, device="cuda",
+                             compute_dtype=torch.float32)
+        wit = _mesh_objective(torch, st32, StylizeConfig(size=(h, w), use_fused=False), content,
+                              style, image, time_it=False)
+    for route in routes:
+        with _route(route):
+            ref = _mesh_objective(torch, StyleTransfer(params, mean=mean, std=std,
+                                                       device="cuda"), cfg, content, style, image)
+            for n in shards:
+                mesh = M.make_mesh(devices=list(devices)[:n])
+                st = StyleTransfer(params, mean=mean, std=std, device=mesh.home, mesh=mesh)
+                got = _mesh_objective(torch, st, cfg, content, style, image)
+                launches[(route, n)] = got["launches"]
+                vs_ref = _compare(got, ref)
+                vs_wit = _compare(got, wit) if wit is not None else None
+                ref_wit = _compare(ref, wit) if wit is not None else None
+                per = got["forward_launches_per_shard"]
+                kernels = [k for k in MESH_KERNELS if k in ref["launches"]]
+                n_used = M.shard_count(h, n)
+                not_every_shard = {k: per.get(k) for k in kernels
+                                   if len(per.get(k, [])) != n_used or not all(per.get(k, []))}
+                ratio = {k: got["launches"].get(k, 0) / ref["launches"][k] for k in kernels}
+                emit({"phase": "mesh", "part": f"objective_{h}x{w}", "route": route,
+                      "devices": [str(d) for d in mesh.devices], "shards_used": n_used,
+                      "forms": got["route"], "terms": got["terms"],
+                      "vs_unsharded": vs_ref, "vs_plain_fp32": vs_wit,
+                      "unsharded_vs_plain_fp32": ref_wit,
+                      "launches": got["launches"], "unsharded_launches": ref["launches"],
+                      "launch_ratio": ratio, "forward_launches_per_shard": per,
+                      "step_wall_ms": got["step_wall_ms"],
+                      "unsharded_step_wall_ms": ref["step_wall_ms"],
+                      "step_device_ms": got["step_device_ms"],
+                      "unsharded_step_device_ms": ref["step_device_ms"],
+                      "device_launches_per_step": got["device_launches_per_step"],
+                      "unsharded_device_launches_per_step": ref["device_launches_per_step"],
+                      "device_ms_by_kernel": got["device_ms_by_kernel"],
+                      "unsharded_device_ms_by_kernel": ref["device_ms_by_kernel"],
+                      "peak_mib": got["peak_mib"], "unsharded_peak_mib": ref["peak_mib"],
+                      "tol": {"terms": T.TOL_MESH_TERMS, "grad_rel": T.TOL_MESH_GRAD,
+                              "grad_cos": T.TOL_MESH_COS}})
+                bad = []
+                if (max(vs_ref["term_rel"].values()) > T.TOL_MESH_TERMS
+                        or vs_ref["grad_rel"] > T.TOL_MESH_GRAD
+                        or vs_ref["grad_cos"] < T.TOL_MESH_COS):
+                    bad.append(f"departs from the unsharded chain: {vs_ref}")
+                if vs_wit is not None and (max(vs_wit["term_rel"].values()) > TOL_TERMS
+                                           or vs_wit["grad_rel"] > TOL_GRAD_REL
+                                           or vs_wit["grad_cos"] < TOL_GRAD_COS):
+                    bad.append(f"departs from the plain fp32 witness: {vs_wit}")
+                if not_every_shard:
+                    bad.append(f"kernels not launched on every shard: {not_every_shard}")
+                if any(v != n_used for v in ratio.values()):
+                    bad.append(f"launches not {n_used}x the unsharded chain's: {ratio}")
+                # no full-size gather: the stored activations grow by the halo
+                # rows only (a pair's 2 rows each way at the deepest two-conv
+                # level, pool3's H/8 rows, bound every segment's share)
+                halo = 2 * 2 * (n_used - 1) / (h // 8)
+                if got["peak_mib"] > 1.2 * ref["peak_mib"] * (1 + halo):
+                    bad.append(f"peak {got['peak_mib']} MiB above 1.2 x {ref['peak_mib']} MiB "
+                               f"x (1 + {halo}) (halo rows)")
+                if bad:
+                    failures.append(f"{h}x{w} {route} {n} shards: {bad}")
+    return failures, launches
+
+
+def _mesh_forms(torch, params, n, side):
+    """Part 1's kernel table: each of the five sharded chain kernels alone at
+    the ``side`` x ``side`` scale's shapes on a mesh of ``n`` shards of the one card,
+    against the unsharded kernel on the same bf16 inputs and cotangents:
+    outputs, Gram and input gradient (relative Frobenius), and the
+    fwd+bwd device ms of both (profiler), with the halo's share of the
+    rows."""
+    import numpy as np
+
+    from style_transfer_tpu_torch.ops.kernels import block1 as B1
+    from style_transfer_tpu_torch.ops.kernels import conv_gram as CG
+    from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
+    from style_transfer_tpu_torch.ops.kernels import conv_single as CS
+    from style_transfer_tpu_torch.ops.kernels import tolerances as T
+    from style_transfer_tpu_torch.parallel import mesh as M
+
+    mesh = M.make_mesh(devices=["cuda:0"] * n)
+    bf = torch.bfloat16
+    w = {k: [t.cuda() for t in (v["kernel"], v["bias"])] for k, v in params.items()}
+    s1, s4 = side // 2, side // 16
+    cases = {  # name: (unsharded, sharded, pool level, input shape, weights, out, halo, convs)
+        "block1_packed": (B1.block1_packed, B1.make_sharded_block1(mesh), 0, (side, side, 3),
+                          w["conv1_1"] + w["conv1_2"], True, CP.HALO, ((3, 64), (64, 64))),
+        "conv_pair": (lambda x, *p: CP.conv_pair(x, *p, pool=True, gram=True),
+                      CP.make_sharded_pair(mesh, pool=True, gram=True), 1, (s1, s1, 64),
+                      w["conv2_1"] + w["conv2_2"], True, CP.HALO, ((64, 128), (128, 128))),
+        "conv_single": (CS.single_gram, CS.make_sharded_single(mesh, pool=False, gram=True),
+                        1, (s1, s1, 64), w["conv2_1"], True, 1, ((64, 128),)),
+        "gram_tail": (CS.gram_tail, CS.make_sharded_gram_tail(mesh), 4, (s4, s4, 512),
+                      w["conv5_1"], False, 1, ((512, 512),)),
+        "conv_gram": (CG.conv_gram, CG.make_sharded_conv_gram(mesh), 4, (s4, s4, 512),
+                      w["conv5_1"], False, 1, ((512, 512),)),
+    }
+    rows = {}
+    r = np.random.RandomState(15)
+    failures = []
+    for name, (plain_fn, sharded_fn, level, shape, wts, has_out, halo, convs) in cases.items():
+        x = torch.from_numpy(r.rand(1, *shape).astype(np.float32)).to(bf).cuda()
+        # the side^2 image's shard rows at this pool level (the sharded time
+        # includes one gather of the output, which the path does not make)
+        bounds = tuple((lo >> level, hi >> level) for lo, hi in M.row_bounds(side, n))
+
+        def run(fn, sharded, cot=None):
+            xx = x.clone().requires_grad_(True)
+            xs = M.scatter_rows(xx, bounds, mesh) if sharded else xx
+            out, g = fn(xs, *wts) if has_out else (None, fn(xs, *wts))
+            if sharded and out is not None:
+                out = M.gather_rows(out, "cuda:0")
+            if cot is None:
+                cot = [None if out is None else torch.randn_like(out, dtype=torch.float32).to(bf),
+                       torch.randn_like(g)]
+            tot = (g * cot[1]).sum()
+            if out is not None:
+                tot = tot + (out.float() * cot[0].float()).sum()
+            (dx,) = torch.autograd.grad(tot, xx)
+            return out, g, dx, cot
+
+        o1, g1, d1, cot = run(plain_fn, False)
+        o2, g2, d2, _ = run(sharded_fn, True, cot)
+        errs = {"gram": _rel(g2, g1), "dx": _rel(d2, d1)}
+        if o1 is not None:
+            errs["out"] = _rel(o2, o1)
+        ms = _device_ms(torch, lambda: run(plain_fn, False, cot), reps=3)
+        ms_sh = _device_ms(torch, lambda: run(sharded_fn, True, cot), reps=3)
+        extra = sum(min(halo, lo) + min(halo, shape[0] - hi) for lo, hi in bounds)
+        # the bound: the inputs, outputs and input gradient moved once, and the
+        # convs (forward and backward-data) and both Gram products over the
+        # rows each form computes (the sharded form: the halo rows as well)
+        nbytes = _nbytes(x, g1, d1) + (0 if o1 is None else _nbytes(o1))
+        cmid = convs[0][1]
+
+        def bound(h):
+            return _bound(nbytes, _conv_flops(h, shape[1], *convs)
+                          + _gram_flops(h * shape[1], cmid), "bf16")
+
+        rows[name] = {"shape": list(shape), "shards": len(bounds), "errors": errs,
+                      "ms": ms, "sharded_ms": ms_sh, "halo_rows": extra,
+                      "halo_row_share": extra / shape[0],
+                      "bound_ms": bound(shape[0])[0], "sharded_bound_ms": bound(shape[0] + extra)[0],
+                      "bound_by": bound(shape[0] + extra)[1]}
+        lim = {"out": T.TOL_ACT, "gram": T.TOL_GRAM, "dx": T.TOL_DX}
+        over = {k: v for k, v in errs.items() if v > lim[k]}
+        if over:
+            failures.append(f"sharded {name} departs from the unsharded kernel: {over}")
+    emit({"phase": "mesh", "part": f"forms_{side}_{n}_shards", "kernels": rows,
+          "tol": {"out": T.TOL_ACT, "gram": T.TOL_GRAM, "dx": T.TOL_DX}})
+    return failures, rows
+
+
+def _mesh_config5(torch, params, mean, std, steps, devices, n):
+    """Part 3 of :func:`mesh_check`: configuration 5 through ``stylize()``
+    on a mesh of ``n`` shards against the unsharded run (and, reported
+    beside, both against the plain path in fp32); returns the failures."""
+    import dataclasses
+
+    import numpy as np
+
+    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
+    from style_transfer_tpu_torch.parallel import mesh as M
+
+    r = np.random.RandomState(5)
+    content = r.rand(*CONFIG5_HW, 3).astype(np.float32)
+    style = r.rand(1024, 1024, 3).astype(np.float32)
+    cfg = StylizeConfig(size=max(CONFIG5_HW), min_scale=CONFIG5_MIN_SCALE,
+                        iterations=(steps,), chunk_size=10)
+    mesh = M.make_mesh(devices=list(devices)[:n])
+    st = StyleTransfer(params, mean=mean, std=std, device=mesh.home, mesh=mesh)
+    forms = {}
+    real_vgg = st._vgg
+
+    def vgg(cfg_, image, cl, sl, remat=False):
+        out = real_vgg(cfg_, image, cl, sl, remat)
+        if cl and sl:  # the objective, not a capture
+            forms[image.shape[1]] = [list(p) for p in st.last_route]
+        return out
+
+    st._vgg = vgg
+    shards = {}
+    with _DispatchSpy(torch, st, sync_mode="warn") as spy:
+        out, curves, summary, seconds, launches = _counted_stylize_events(
+            torch, st, content, style, cfg, shards)
+    del st._vgg
+    ref = StyleTransfer(params, mean=mean, std=std, device="cuda")
+    out1, curves1, summary1, seconds1 = _stylize(torch, ref, content, style, cfg)
+    st32 = StyleTransfer(params, mean=mean, std=std, device="cuda", compute_dtype=torch.float32)
+    curves32 = _stylize(torch, st32, content, style, dataclasses.replace(cfg, use_fused=False))[1]
+
+    def dev(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    syncs = [len(c) for c in spy.syncs]
+    falls = {k: _falls_by_chunk_peaks(v, cfg.chunk_size) for k, v in curves.items()}
+    emit({"phase": "mesh", "part": "config5", "devices": [str(d) for d in mesh.devices],
+          "sizes": summary["sizes"], "shards_per_scale": shards, "forms_per_scale_rows": forms,
+          "seconds": seconds, "unsharded_seconds": seconds1, "launches": launches,
+          "its_per_sec_steady": summary["per_scale_its_per_sec"],
+          "unsharded_its_per_sec_steady": summary1["per_scale_its_per_sec"],
+          "peak_mib": summary["peak_mib"], "unsharded_peak_mib": summary1["peak_mib"],
+          "loss_per_step": curves, "unsharded_loss_per_step": curves1,
+          "dev_from_unsharded": {k: dev(curves[k], curves1[k]) for k in curves},
+          "dev_from_plain_fp32": {k: dev(curves[k], curves32[k]) for k in curves},
+          "unsharded_dev_from_plain_fp32": {k: dev(curves1[k], curves32[k]) for k in curves},
+          "tol_curve": TOL_CURVE, "falls_by_chunk_peaks": falls,
+          "syncs_per_chunk": syncs, "chunks": spy.queued,
+          "sync_where": sorted({w for c in spy.syncs for w in c}),
+          "out_shape": list(out.shape)})
+    failures = []
+    if any(syncs) or not syncs:
+        failures.append(f"config5: synchronizing calls in Adam chunks: {syncs}")
+    if not all(falls.values()):
+        failures.append(f"config5: a scale's loss does not fall by chunk peaks: {falls}")
+    far = {k: dev(curves[k], curves1[k]) for k in curves if dev(curves[k], curves1[k]) > TOL_CURVE}
+    if far:
+        failures.append(f"config5: curves depart from the unsharded run: {far}")
+    if out.shape != (*CONFIG5_HW, 3) or not np.isfinite(out).all():
+        failures.append("config5: output shape or values")
+    if list(shards.values()) != [M.shard_count(h, n) for h, _ in summary["sizes"].values()]:
+        failures.append(f"config5: shards per scale {shards}")
+    return failures
+
+
+def _counted_stylize_events(torch, st, content, style, cfg, shards):
+    """:func:`_counted_stylize` that also keeps each scale's shard count."""
+    counters = _counters()
+    for c in counters.values():
+        c.n = 0
+    real = st.stylize
+
+    def stylize(content, style, cfg, callback=None):
+        def cb(ev):
+            shards[ev.scale_index] = ev.shards
+            callback(ev)
+
+        return real(content, style, cfg, callback=cb)
+
+    st.stylize = stylize
+    try:
+        out, curves, summary, seconds = _stylize(torch, st, content, style, cfg)
+    finally:
+        del st.stylize
+    return out, curves, summary, seconds, {k: c.n for k, c in counters.items()}
+
+
+def mesh_check(torch, params, mean, std, steps):
+    """Phase 15: the spatial mesh (``parallel/mesh.py``) at VGG-19's full
+    widths, default layers, average pooling, TV weight 2, Adam, seeded
+    weights and noise; the meshes repeat the one card (``[cuda:0] * n``):
+
+    1. 2048x2048: the objective's loss terms and image gradient with 2, 4
+       and 8 shards, on the natural route (block 1, singles, ``conv_gram``)
+       and on the forced one (pairs, block 2's pair, ``gram_tail``), against
+       the unsharded chain on the card and the plain fp32 witness; launches
+       per kernel (N times the unsharded chain's) and forward launches per
+       shard (every kernel on every shard), an Adam step's wall and device
+       ms and peak MiB (within 1.2x the unsharded peak grown by the halo
+       rows: no full-size gather); then each of the five sharded kernels
+       alone at the scale's shapes with 8 shards against the unsharded
+       kernel, with both device times and the halo's share of the rows;
+    2. 512x512 and 128x128 with 8 shards (block 4 at 8 and 2 rows a shard,
+       conv5_1 at 4 and 1), and configuration 5's 1080x1920 scale, where
+       block 4 and conv5_1 run the plain sharded VGG: the same objective
+       checks;
+    3. configuration 5 through ``stylize()``: a 3840x2160 noise content over
+       its five scales (240 -> 3840 px wide), ``steps`` a scale in chunks of
+       10, 8 shards, against the unsharded run: the curve (``TOL_CURVE``),
+       falling by chunk peaks, shards per scale, the route at each scale,
+       and no synchronizing call in any pipelined Adam chunk;
+    4. ``parallel.dryrun.dryrun_multichip(8, [cuda:0] * 8)``, four variants;
+    5. with more than one card visible, parts 1 and 3 over real devices;
+       else a line says that it did not run.
+
+    Returns, for the kernels line, each of the five sharded kernels'
+    launches in an 8-shard evaluation of part 1 on the route that runs it
+    and its part-1 table row."""
+    from style_transfer_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    n_max = max(MESH_SHARDS)
+    one = ["cuda:0"] * n_max
+    failures, launches = _mesh_objectives(torch, params, mean, std, hw=(MESH_SIDE, MESH_SIDE),
+                                          shards=MESH_SHARDS, routes=("natural", "forced"),
+                                          devices=one, witness=True)
+    forms_fail, forms = _mesh_forms(torch, params, n_max, MESH_SIDE)
+    failures += forms_fail
+    for hw in ((MESH_SMALL_SIDE,) * 2, (MESH_TINY_SIDE,) * 2, CONFIG5_ODD_HW):
+        failures += _mesh_objectives(torch, params, mean, std, hw=hw, shards=(n_max,),
+                                     routes=("natural",), devices=one, witness=True)[0]
+    failures += _mesh_config5(torch, params, mean, std, steps, one, 8)
+    try:
+        dry = dryrun_multichip(8, one)
+        emit({"phase": "mesh", "part": "dryrun_multichip", "results": dry})
+    except AssertionError as e:
+        failures.append(f"dryrun_multichip: {e}")
+    count = torch.cuda.device_count()
+    if count > 1:
+        real = [f"cuda:{i}" for i in range(count)]
+        n = min(8, count)
+        failures += _mesh_objectives(torch, params, mean, std, hw=(MESH_SIDE, MESH_SIDE),
+                                     shards=(n,),
+                                     routes=("natural",), devices=real, witness=False)[0]
+        failures += _mesh_config5(torch, params, mean, std, steps, real, n)
+    else:
+        emit({"phase": "mesh", "part": "real_devices", "ran": False,
+              "note": "one CUDA device visible: parts 1 and 3 over real devices did not run"})
+    if failures:
+        raise AssertionError(f"mesh: {failures}")
+    return {k: dict(forms[k], launches_8_shards=max(launches[(r, n_max)].get(k, 0)
+                                                    for r in ("natural", "forced")))
+            for k in MESH_KERNELS}
+
+
 PHASES = ("kernel", "segment_forms", "parity", "stylize", "large", "fused_block1", "objective",
-          "profile", "ladder", "lbfgs", "cli", "pipeline")
+          "profile", "ladder", "lbfgs", "cli", "pipeline", "mesh")
 
 
 def main(argv=None) -> int:
@@ -2780,6 +3295,9 @@ def main(argv=None) -> int:
         timed("cli", lambda: cli_check(torch, args.steps))
     if "pipeline" in phases:
         timed("pipeline", lambda: pipeline_check(torch, params, mean, std, args.steps))
+    mesh_forms = {}
+    if "mesh" in phases:
+        mesh_forms = timed("mesh", lambda: mesh_check(torch, params, mean, std, args.steps))
     emit({"phase": "memory", "peak_mib": {"objective": peak.get("objective")},
           "seconds_by_phase": seconds_by_phase})
 
@@ -2793,7 +3311,7 @@ def main(argv=None) -> int:
              "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"],
              "bound_ms": summary[name]["bound_ms"], "bound_by": summary[name]["bound_by"],
              "bound_two_pass_ms": summary[name]["bound_two_pass_ms"],
-             "library_ms": summary[name]["library_ms"]}
+             "library_ms": summary[name]["library_ms"], "mesh": mesh_forms.get(name)}
             for name, (replaces, sources, phase) in KERNEL_META.items()
         ]})
     print(card, flush=True)

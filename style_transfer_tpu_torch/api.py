@@ -95,10 +95,30 @@ residuals across the step; only the handoffs between kernels stay live.
 (:data:`REMAT_AUTO_PIXELS`, :data:`REMAT_AUTO_PIXELS_FUSED`). Target capture
 runs under ``torch.no_grad()`` and takes no checkpoint.
 
+``StyleTransfer(mesh=...)`` is the reference's spatial mesh
+(``api.py:345-367``; ``parallel/mesh.py`` says what is sharded and where):
+each scale splits the preprocessed image along H into
+``mesh.row_bounds`` shards, one per device of the mesh's first
+``mesh.shard_count`` devices (reported as ``ProgressEvent.shards``), and
+the VGG runs on those shards. The chain keeps its gates and sends each
+segment to its sharded form (``make_sharded_block1``,
+``make_sharded_pair`` for block 2 and the pairs, ``make_pair_of_singles(
+mesh=...)``, ``make_sharded_conv_gram``, ``make_sharded_gram_tail``); what
+the chain does not carry runs ``vgg.extract_features_sharded``, the
+counterpart of the reference's XLA-partitioned fallback. The content loss
+sums each shard's squared error on the home device and divides by the
+global count; the content targets are captured through the same mesh, on
+the same rows. Grams come home all-reduced; the style loss, TV and the
+total are computed there, and the image, the optimizer and the chunk loop
+stay there, unchanged. ``fused_block1`` is ignored under a mesh, as in the
+reference (``api.py:480-489``), and the auto thresholds of remat and of
+pipelining count the pixels of the most loaded device (all of them where
+the mesh repeats one card).
+
 Left out (ROADMAP.md): background compiles (``warm_compile``: the port
 compiles nothing per scale), grid snapping and the 2^31 TPU resolution
-ceiling, meshes, and the ``packed_block*`` switches (the chain engages by
-its structural gates alone).
+ceiling, and the ``packed_block*`` switches (the chain engages by its
+structural gates alone).
 """
 
 from __future__ import annotations
@@ -127,6 +147,7 @@ from style_transfer_tpu_torch.ops.kernels import dispatch
 from style_transfer_tpu_torch.ops.kernels import epilogue as EP
 from style_transfer_tpu_torch.ops.kernels import gram as KG
 from style_transfer_tpu_torch.optim import OptimizerSpec, make_step_fn
+from style_transfer_tpu_torch.parallel import mesh as M
 from style_transfer_tpu_torch.schedule import _round_even, build_plan
 from style_transfer_tpu_torch.utils import imgio
 from style_transfer_tpu_torch.utils.ckpt import flatten_opt_state, restore_opt_state
@@ -378,20 +399,57 @@ def _style_size(style_hw, scale_hw, style_scale: float) -> Tuple[int, int]:
     return sh - sh % 2, sw - sw % 2
 
 
-def _even(t: torch.Tensor) -> bool:
-    return t.shape[1] % 2 == 0 and t.shape[2] % 2 == 0
+def _hw(t) -> Tuple[int, int]:
+    """(H, W) of an NHWC tensor, or of the image a list of H shards makes."""
+    if isinstance(t, (list, tuple)):
+        return sum(M.rows_of(t)), int(t[0].shape[2])
+    return int(t.shape[1]), int(t.shape[2])
 
 
-def _segment(handoff: torch.Tensor, cin: int, cmid: int, *, pool: bool, gram: bool,
-             block2: bool = False):
+def _even(t) -> bool:
+    h, w = _hw(t)
+    return h % 2 == 0 and w % 2 == 0
+
+
+def _segment(handoff, cin: int, cmid: int, *, pool: bool, gram: bool, block2: bool = False,
+             mesh: Optional[M.Mesh] = None):
     """Kernel callable for one two-conv segment fed by ``handoff``, per
-    :func:`dispatch.segment_impl` (JAX ``_seg_fn``, ``api.py:723-746``)."""
-    impl = dispatch.segment_impl(handoff.shape[2], cin, cmid, pool=pool, gram=gram)
+    :func:`dispatch.segment_impl` (JAX ``_seg_fn``, ``api.py:723-746``), and
+    its name; with a ``mesh``, the sharded form."""
+    impl = dispatch.segment_impl(_hw(handoff)[1], cin, cmid, pool=pool, gram=gram)
     if impl == "singles":
-        return CS.make_pair_of_singles(pool=pool, gram=gram)
+        return CS.make_pair_of_singles(pool=pool, gram=gram, mesh=mesh), "singles"
+    if mesh is not None:
+        return CP.make_sharded_pair(mesh, pool=pool, gram=gram), "pair"
     if block2:
-        return B2.block2_fused
-    return CP.pair_gram if gram else CP.pair_pool
+        return B2.block2_fused, "pair"
+    return (CP.pair_gram if gram else CP.pair_pool), "pair"
+
+
+def _mesh_content_loss(home: torch.device):
+    """The content loss of sharded activations: each shard's squared error
+    summed on its device, the sums added on ``home`` and divided by the
+    global element count (the port's ``losses.content_loss`` on the whole
+    activation)."""
+
+    def content_loss(feats, targets):
+        sse = [torch.sum(torch.square(f.to(torch.float32) - t.to(torch.float32)))
+               for f, t in zip(feats, targets)]
+        return M.all_reduce_to(sse, home) / float(sum(f.numel() for f in feats))
+
+    return content_loss
+
+
+def _mesh_gram(gram_fn, home: torch.device):
+    """The Gram of sharded activations: ``gram_fn`` of each non-empty shard,
+    weighted by its share of the rows and added on ``home``."""
+
+    def gram(feats):
+        total = float(sum(f.shape[1] for f in feats))
+        return M.all_reduce_to([gram_fn(f) * (f.shape[1] / total) for f in feats if f.shape[1]],
+                               home)
+
+    return gram
 
 
 class StyleTransfer:
@@ -407,11 +465,17 @@ class StyleTransfer:
     """
 
     def __init__(self, params=None, *, mean=None, std=None, pooling: str = "average",
-                 compute_dtype: Optional[torch.dtype] = None, device=None):
+                 compute_dtype: Optional[torch.dtype] = None, device=None,
+                 mesh: Optional[M.Mesh] = None):
         if params is None:
             params, fmean, fstd = random_fixture(0)
             mean = fmean if mean is None else mean
             std = fstd if std is None else std
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and M.canonical_device(device) != mesh.home:
+                raise ValueError(f"device={device} is not the mesh's first device {mesh.home}")
+            device = mesh.home
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(NO_CUDA_MESSAGE)
@@ -435,13 +499,40 @@ class StyleTransfer:
             name: {k: torch.as_tensor(v, dtype=torch.float32).to(self.device) for k, v in p.items()}
             for name, p in params.items()
         }
+        if mesh is not None:
+            M.replicate(self.params, mesh)  # one copy per other device, made now
+        # the chain's route of the last VGG forward: (segment, form) pairs
+        self.last_route: Tuple[Tuple[str, str], ...] = ()
 
     # ---------------------------------------------------------------- model
 
+    def _scale_mesh(self, h: int):
+        """``(mesh, bounds)`` for an image of ``h`` rows: the row bounds of
+        ``mesh.row_bounds`` and the mesh of the devices they use; ``(None,
+        None)`` without a mesh."""
+        if self.mesh is None:
+            return None, None
+        bounds = M.row_bounds(h, self.mesh.size)
+        return self.mesh.take(len(bounds)), bounds
+
+    def _input(self, image: torch.Tensor):
+        """The preprocessed image in the compute dtype, scattered along H
+        over the scale's mesh where there is one; and that mesh."""
+        x = imgio.preprocess(image, self._mean, self._std).to(self.compute_dtype)
+        mesh, bounds = self._scale_mesh(image.shape[1])
+        return (x if mesh is None else M.scatter_rows(x, bounds, mesh)), mesh
+
     def _features(self, image: torch.Tensor, layers: Sequence[str],
                   remat: bool = False) -> Dict[str, torch.Tensor]:
-        """Preprocess + plain VGG forward on an NHWC [0,1] image."""
+        """Preprocess + plain VGG forward on an NHWC [0,1] image; under a
+        mesh, per shard (each activation a list of shards)."""
+        if self.mesh is not None:
+            xs, _ = self._input(image)
+            self.last_route = (("vgg", "plain_sharded"),)
+            return vgg_mod.extract_features_sharded(
+                self.params, xs, layers, pooling=self.pooling, arch=self.arch, remat=remat)
         x = imgio.preprocess(image, self._mean, self._std)
+        self.last_route = (("vgg", "plain"),)
         return vgg_mod.extract_features(
             self.params, x, layers, pooling=self.pooling,
             compute_dtype=self.compute_dtype, arch=self.arch, remat=remat,
@@ -467,12 +558,15 @@ class StyleTransfer:
 
     def _chain(self, cfg: StylizeConfig) -> bool:
         """Whether the fused chain carries the VGG work: ``use_fused`` without
-        ``fused_block1``, which takes precedence (``api.py:494``)."""
-        return self._fused(cfg) and not cfg.fused_block1
+        ``fused_block1``, which takes precedence (``api.py:494``) off a
+        mesh."""
+        return self._fused(cfg) and not (cfg.fused_block1 and self.mesh is None)
 
     def _gram_fn(self, cfg: StylizeConfig):
-        """Gram of a materialized activation (``api.py:408-413``)."""
-        return KG.gram_matrix if cfg.use_fused else L.gram_matrix
+        """Gram of a materialized activation (``api.py:408-413``); under a
+        mesh, of its shards."""
+        fn = KG.gram_matrix if cfg.use_fused else L.gram_matrix
+        return fn if self.mesh is None else _mesh_gram(fn, self.device)
 
     def _loss_fns(self, cfg: StylizeConfig) -> dict:
         """Fused-epilogue hooks for :func:`ops.losses.objective_terms`
@@ -482,13 +576,18 @@ class StyleTransfer:
         step on the H100 their gain was at the edge of the run-to-run spread,
         and their effect on the chain's small, host-bound scales was not
         measured (PERF.md)."""
-        return {"tv_loss_fn": EP.tv_loss} if cfg.use_fused else {}
+        fns = {"tv_loss_fn": EP.tv_loss} if cfg.use_fused else {}
+        if self.mesh is not None:
+            fns["content_loss_fn"] = _mesh_content_loss(self.device)
+        return fns
 
     def _block1_eligible(self, cfg: StylizeConfig) -> bool:
         """Whether ``block1_full`` carries block 1 (``api.py:480-489``):
-        explicit opt-in, under ``use_fused`` and the structural gate."""
+        explicit opt-in, under ``use_fused`` and the structural gate, and
+        without a mesh."""
         return (
             cfg.fused_block1
+            and self.mesh is None
             and self._fused(cfg)
             and self._block1_structurally_eligible(cfg.content_layers, cfg.style_layers)
         )
@@ -544,45 +643,61 @@ class StyleTransfer:
         deeper = all_layers - {"conv1_1", "conv2_1", "conv3_1", "conv4_1", "conv4_2"}
         return not deeper or (deeper == {"conv5_1"} and "conv5_1" not in content_layers)
 
+    def _pixels(self, h: int, w: int) -> int:
+        """Pixels of an (h, w) image's activations on the most loaded device
+        (``api.py:605``: ``H * W // n_dev``; a repeated device holds all of
+        its shards)."""
+        mesh, bounds = self._scale_mesh(h)
+        return h * w if mesh is None else M.pixels_per_device(bounds, w, mesh)
+
     def _use_remat(self, cfg: StylizeConfig, h: int, w: int) -> bool:
         """``cfg.remat``, or for ``None`` whether an (h, w) image reaches the
-        auto threshold of the route ``cfg`` takes (``api.py:602-619``)."""
+        auto threshold of the route ``cfg`` takes (``api.py:602-619``), per
+        device under a mesh."""
         if cfg.remat is not None:
             return cfg.remat
         full = (self._chain(cfg)
                 and self._full_chain_dispatches(h, w, cfg.content_layers, cfg.style_layers))
-        return h * w >= (REMAT_AUTO_PIXELS_FUSED if full else REMAT_AUTO_PIXELS)
+        return self._pixels(h, w) >= (REMAT_AUTO_PIXELS_FUSED if full else REMAT_AUTO_PIXELS)
 
     def _chain_features(self, image, content_layers, style_layers, remat: bool = False):
         """The fused-chain VGG forward of ``api.py:644-918``: returns
         ``(feats, grams)`` — activations for the requested layers the chain
         does not carry, and the chain's Grams for requested style layers.
-        ``remat`` runs each kernel call under a checkpoint (``api.py:664``)."""
+        ``remat`` runs each kernel call under a checkpoint (``api.py:664``).
+        Under a mesh every segment runs its sharded form on the scale's
+        shards, the activations in ``feats`` are lists of shards and the
+        Grams lie on the home device."""
         all_layers = tuple(dict.fromkeys(list(content_layers) + list(style_layers)))
         style = set(style_layers)
         if not (self._block1_structurally_eligible(content_layers, style_layers) and _even(image)):
             return self._features(image, all_layers, remat), {}
         ck = _checkpointed if remat else (lambda f: f)
-        x = imgio.preprocess(image, self._mean, self._std).to(self.compute_dtype)
+        x, mesh = self._input(image)
+        sharded = mesh is not None
+        route = [("block1", "pair")]
         grams: Dict[str, torch.Tensor] = {}
-        pool1, g = ck(B1.block1_packed)(x, *self._weights("conv1_1", "conv1_2"))
+        b1 = B1.block1_packed if mesh is None else B1.make_sharded_block1(mesh)
+        pool1, g = ck(b1)(x, *self._weights("conv1_1", "conv1_2"))
         if "conv1_1" in style:
             grams["conv1_1"] = g
         covered = {"conv1_1"}
         start_block, handoff, start_conv = 2, pool1, 0
         y42 = None
         if self._block2_eligible(content_layers, style_layers) and _even(pool1):
-            b2 = _segment(pool1, 64, 128, pool=True, gram=True, block2=True)
+            b2, form = _segment(pool1, 64, 128, pool=True, gram=True, block2=True, mesh=mesh)
             pool2, g = ck(b2)(pool1, *self._weights("conv2_1", "conv2_2"))
+            route.append(("block2", form))
             if "conv2_1" in style:
                 grams["conv2_1"] = g
             covered.add("conv2_1")
             start_block, handoff = 3, pool2
             if self._block3_eligible(content_layers, style_layers) and _even(pool2):
-                b3f = _segment(pool2, 128, 256, pool=False, gram=True)
-                b3t = _segment(pool2, 256, 256, pool=True, gram=False)
+                b3f, form_f = _segment(pool2, 128, 256, pool=False, gram=True, mesh=mesh)
+                b3t, form_t = _segment(pool2, 256, 256, pool=True, gram=False, mesh=mesh)
                 y32, g = ck(b3f)(pool2, *self._weights("conv3_1", "conv3_2"))
                 pool3 = ck(b3t)(y32, *self._weights("conv3_3", "conv3_4"))
+                route += [("block3_front", form_f), ("block3_tail", form_t)]
                 if "conv3_1" in style:
                     grams["conv3_1"] = g
                 covered.add("conv3_1")
@@ -593,31 +708,40 @@ class StyleTransfer:
                     and not (b4_tail & set(all_layers))
                     and _even(pool3)
                 ):
-                    b4f = _segment(pool3, 256, 512, pool=False, gram=True)
+                    b4f, form = _segment(pool3, 256, 512, pool=False, gram=True, mesh=mesh)
                     y42, g = ck(b4f)(pool3, *self._weights("conv4_1", "conv4_2"))
+                    route.append(("block4_front", form))
                     if "conv4_1" in style:
                         grams["conv4_1"] = g
                     covered.update(("conv4_1", "conv4_2"))
                     start_block, handoff, start_conv = 4, y42, 2
                     if any(l not in covered for l in all_layers):
-                        b4t = _segment(pool3, 512, 512, pool=True, gram=False)
+                        b4t, form = _segment(pool3, 512, 512, pool=True, gram=False, mesh=mesh)
                         pool4 = ck(b4t)(y42, *self._weights("conv4_3", "conv4_4"))
+                        route.append(("block4_tail", form))
                         covered.update(b4_tail)
                         start_block, handoff, start_conv = 5, pool4, 0
         deeper = tuple(l for l in all_layers if l not in covered)
         if deeper == ("conv5_1",) and start_block == 5 and "conv5_1" not in content_layers:
-            tail = (CG.conv_gram if dispatch.gram_tail_impl(handoff.shape[2], 512) == "conv_gram"
-                    else CS.gram_tail)
+            impl = dispatch.gram_tail_impl(_hw(handoff)[1], 512)
+            if impl == "conv_gram":
+                tail = CG.conv_gram if mesh is None else CG.make_sharded_conv_gram(mesh)
+            else:
+                tail = CS.gram_tail if mesh is None else CS.make_sharded_gram_tail(mesh)
             grams["conv5_1"] = ck(tail)(handoff, *self._weights("conv5_1"))
+            route.append(("conv5_1", impl))
             deeper = ()
         feats: Dict[str, torch.Tensor] = {}
         if deeper:
-            feats = vgg_mod.extract_features(
+            extract = vgg_mod.extract_features_sharded if sharded else vgg_mod.extract_features
+            feats = extract(
                 self.params, handoff, deeper, pooling=self.pooling, arch=self.arch,
                 remat=remat, start_block=start_block, start_conv=start_conv,
             )
+            route.append((f"block{start_block}+", "plain_sharded" if sharded else "plain"))
         if y42 is not None and "conv4_2" in all_layers:
             feats["conv4_2"] = y42
+        self.last_route = tuple(route)
         return feats, grams
 
     def _fused_block1_features(self, image, content_layers, style_layers, remat: bool = False):
@@ -633,11 +757,13 @@ class StyleTransfer:
         pool1, g1 = ck(B1.block1_full)(x, *self._weights("conv1_1", "conv1_2"))
         deeper = tuple(l for l in all_layers if l != "conv1_1")
         feats: Dict[str, torch.Tensor] = {}
+        self.last_route = (("block1", "block1_full"),)
         if deeper:
             feats = vgg_mod.extract_features(
                 self.params, pool1, deeper, pooling=self.pooling, arch=self.arch,
                 remat=remat, start_block=2,
             )
+            self.last_route += (("block2+", "plain"),)
         return feats, ({"conv1_1": g1} if "conv1_1" in style_layers else {})
 
     def _vgg(self, cfg: StylizeConfig, image, content_layers, style_layers, remat: bool = False):
@@ -798,7 +924,8 @@ class StyleTransfer:
                     opt_state = optimizer.init(image)
                     done_iters = 0
 
-                pipeline = _pipeline_auto(cfg, h * w)
+                pipeline = _pipeline_auto(cfg, self._pixels(h, w))
+                shards = 1 if self.mesh is None else M.shard_count(h, self.mesh.size)
                 prev_mean, stall, t_prev, prev_event = None, 0, 0.0, None
 
                 def _process(rec: _PendingChunk) -> bool:
@@ -858,6 +985,7 @@ class StyleTransfer:
                                 get_state=functools.partial(
                                     _resumable_state, rec.image, rec.opt_state, rec.done_iters,
                                     scale.index, rec.ema, fetch),
+                                shards=shards,
                             ),
                             threaded=pipeline,
                         )

@@ -31,9 +31,12 @@ flag asks for what the port does not do:
 - ``--device {cuda,cpu}`` (default ``cuda``) is the one new flag, the port's
   form of the reference's ``JAX_PLATFORMS=cpu`` pin: without a card the CLI
   runs on the CPU only with ``--device cpu``, and otherwise exits 2;
-- ``--devices``: unset, 0 or 1 run on one card (``cuda:0``; with more cards
-  visible and the flag unset, a line says so); N > 1 exits 2, the mesh is
-  not ported yet (ROADMAP.md queue 1 item 6);
+- ``--devices``: as the reference (``cli.py:241-247``), unset shards over
+  every visible card when there is more than one, N > 1 over
+  ``cuda:0..N-1`` (``parallel.mesh.make_mesh``), 0 or 1 run on ``cuda:0``;
+  N above the visible count exits 2 with the count. With ``--device cpu``,
+  ``--devices N`` is a mesh of N CPU shards, the counterpart of the
+  reference's forced CPU devices;
 - ``--precision``: ``bf16`` or unset is bf16 on the card and fp32 on the CPU
   (the plain versions there are the fp32 oracle); ``fp32`` on the card needs
   ``--unfused`` (the kernels compute in bf16), else exit 2;
@@ -148,8 +151,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run on the NVIDIA GPU (default; exits 2 without one) or, "
                         "only when asked, on the CPU")
     g.add_argument("--devices", type=int, default=None,
-                   help="devices to shard over: unset, 0 or 1 run on one card "
-                        "(cuda:0); more exit 2, the mesh is not ported yet")
+                   help="shard spatially over the first N devices (default: all "
+                        "visible cards; 0 or 1: one card); with --device cpu, N CPU "
+                        "shards")
     g.add_argument("--precision", choices=["bf16", "fp32"], default=None,
                    help="activation compute dtype (default and bf16: bf16 on the "
                         "card, fp32 on the CPU; fp32 on the card needs --unfused)")
@@ -244,9 +248,6 @@ def _departure(args: argparse.Namespace) -> Optional[str]:
         return ("--grid-snap on: the port never snaps the scale ladder (the 16-row grid "
                 "is a TPU device; its kernels take any even size); use --grid-snap auto "
                 "or off")
-    if args.devices is not None and args.devices > 1:
-        return (f"--devices {args.devices}: the mesh is not ported yet (ROADMAP.md queue "
-                "1 item 6); use --devices 1 or leave it unset for one card")
     if args.precision == "fp32" and args.device == "cuda" and not args.unfused:
         return ("--precision fp32: the CUDA kernels compute in bf16; use --precision "
                 "bf16, or --unfused for the plain path in fp32")
@@ -276,6 +277,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from style_transfer_tpu_torch.api import NO_CUDA_MESSAGE, StyleTransfer, StylizeConfig
     from style_transfer_tpu_torch.models.weights import load_npz, random_fixture
     from style_transfer_tpu_torch.optim import OptimizerSpec
+    from style_transfer_tpu_torch.parallel.mesh import make_mesh
     from style_transfer_tpu_torch.utils import imgio
     from style_transfer_tpu_torch.utils.progress import MetricsRecorder, Printer, fanout
 
@@ -292,15 +294,24 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
 
     if args.device == "cuda":
+        visible = torch.cuda.device_count()
+        if args.devices is not None and args.devices > max(visible, 1):
+            print(f"error: --devices {args.devices}: {visible} CUDA device(s) visible",
+                  file=sys.stderr)
+            return 2
         if not torch.cuda.is_available():
             print(f"error: {NO_CUDA_MESSAGE} (--device cpu)", file=sys.stderr)
             return 2
         device = "cuda:0"
-        if args.devices is None and torch.cuda.device_count() > 1:
-            print(f"{torch.cuda.device_count()} CUDA devices visible; running on cuda:0 "
-                  "(the mesh is not ported yet)", flush=True)
+        n_mesh = visible if args.devices is None else args.devices
+        mesh = make_mesh(n_mesh) if n_mesh > 1 else None
     else:
         device = "cpu"
+        n_mesh = args.devices or 1
+        mesh = make_mesh(devices=["cpu"] * n_mesh) if n_mesh > 1 else None
+    if mesh is not None:
+        print(f"mesh: {mesh.size} devices ({', '.join(map(str, mesh.devices))}), "
+              "activations split along H", flush=True)
 
     compute_dtype = None  # bf16 on the card, fp32 on the CPU
     if args.precision == "fp32":
@@ -309,7 +320,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("--precision bf16: the CPU runs the plain versions in fp32", flush=True)
 
     st = StyleTransfer(params, mean=mean, std=std, pooling=args.pooling,
-                       compute_dtype=compute_dtype, device=device)
+                       compute_dtype=compute_dtype, device=device, mesh=mesh)
 
     # uint8 until on-device conversion: 4x less host->device traffic.
     content = imgio.load_image(args.content, dtype=np.uint8)

@@ -11,9 +11,16 @@ hand-written kernels of ``ops/kernels``).
 
 ``remat=True`` checkpoints each conv block with a non-reentrant
 ``torch.utils.checkpoint.checkpoint``, the counterpart of the reference's
-``jax.checkpoint(block_fn)``. Left out: ``shard_divisor`` and the SPMD
-slice-pool variant (spatial meshes are not ported yet), and the ``VGG``
-convenience class.
+``jax.checkpoint(block_fn)``.
+
+:func:`extract_features_sharded` is the same forward on a list of H shards
+(``parallel/mesh.py``): the layers a mesh runs outside the kernel chain
+(odd extents, non-default layers, ``use_fused=False``). Each conv takes one
+halo row of each neighbour, each pool takes the rows of its pairs. The
+reference's ``shard_divisor`` switch (``vgg.py:143-180``), which pools by
+slicing to work around an XLA SPMD miscompile of the reshape pool's
+backward, has no counterpart: the port pools each shard itself. Left out
+too: the ``VGG`` convenience class.
 
 ``init_params`` draws He-normal weights from ``numpy.random.RandomState``,
 so its values differ from the JAX package's ``jax.random`` fixture; parity
@@ -28,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+
+from style_transfer_tpu_torch.parallel import mesh as M
 
 ARCH_BLOCKS: Dict[str, tuple] = {
     "vgg19": (2, 2, 4, 4, 4),
@@ -214,6 +223,98 @@ def extract_features(
                 block_fn, x, use_reentrant=False, preserve_rng_state=False)
         else:
             x, block_feats = block_fn(x)
+        feats.update(block_feats)
+        if block_stop is not None:
+            return feats
+    return feats
+
+
+def _conv_shards(xs, kernel, bias):
+    """relu(conv3x3) of every shard, each over its rows plus one halo row of
+    each neighbour, keeping its own rows."""
+    ext = M.with_halo(xs, 1, 1)
+    out = []
+    for i, (x, e) in enumerate(zip(xs, ext)):
+        up, own = (1 if i > 0 else 0), x.shape[1]
+        y = torch.relu(conv3x3(e, *M.replicas(x.device, kernel, bias)))
+        out.append(y[:, up:up + own])
+    return out
+
+
+def _pool_shards(xs, mode: str):
+    """:func:`pool2x2` of the image the shards make up, shard by shard:
+    pooled row j pairs rows 2j and 2j+1, so a shard whose first row is odd
+    leaves it to the shard before, which takes it as one halo row. The
+    pooled shard ``[lo, hi)`` becomes ``[ceil(lo/2), ceil(hi/2))``; an odd
+    last row at the image's edge pools as :func:`pool2x2` pools it. The
+    chain's row bounds (``mesh.row_bounds``) start every shard on an even
+    row before conv5_1, where no halo is needed."""
+    rows = M.rows_of(xs)
+    starts = [sum(rows[:i]) for i in range(len(rows))]
+    if not any(s % 2 for s in starts):
+        return [pool2x2(x, mode) for x in xs]
+    ext = M.with_halo(xs, 0, 1)
+    out = []
+    for i, (x, e, lo) in enumerate(zip(xs, ext, starts)):
+        end = rows[i] + (1 if (lo + rows[i]) % 2 and i < len(xs) - 1 else 0)
+        out.append(pool2x2(e[:, lo % 2:end], mode))
+    return out
+
+
+def extract_features_sharded(
+    params: Mapping[str, Mapping[str, torch.Tensor]],
+    xs: Sequence[torch.Tensor],
+    layers: Sequence[str],
+    *,
+    pooling: str = "average",
+    compute_dtype: Optional[torch.dtype] = None,
+    arch: str = DEFAULT_ARCH,
+    remat: bool = False,
+    start_block: int = 1,
+    start_conv: int = 0,
+) -> Dict[str, list]:
+    """:func:`extract_features` on a list of H shards, one per mesh device
+    (``parallel/mesh.py``): returns each requested activation as a list of
+    shards. Each conv runs per shard over its rows plus one halo row of each
+    neighbour (``mesh.with_halo``), so no activation is ever gathered. The
+    weights reach each shard's device through ``mesh.replica``. ``remat``
+    checkpoints each block as :func:`extract_features` does."""
+    if not layers:
+        raise ValueError("no layers requested")
+    wanted = set(layers)
+    stop = deepest_layer(layers, arch)
+    xs = list(xs)
+    if compute_dtype is not None:
+        xs = [x.to(compute_dtype) for x in xs]
+
+    feats: Dict[str, list] = {}
+    for b, n, _ in blocks(arch):
+        if b < start_block:
+            continue
+        skip = start_conv if b == start_block else 0
+        names = [f"conv{b}_{i}" for i in range(skip + 1, n + 1)]
+        pool_name = f"pool{b}"
+        block_stop = stop if (stop in names or stop == pool_name) else None
+
+        def block_fn(*xs, names=names, pool_name=pool_name, block_stop=block_stop):
+            bf: Dict[str, list] = {}
+            xs = list(xs)
+            for name in names:
+                xs = _conv_shards(xs, params[name]["kernel"], params[name]["bias"])
+                if name in wanted:
+                    bf[name] = xs
+                if name == block_stop:
+                    return xs, bf
+            xs = _pool_shards(xs, pooling)
+            if pool_name in wanted:
+                bf[pool_name] = xs
+            return xs, bf
+
+        if remat:
+            xs, block_feats = torch.utils.checkpoint.checkpoint(
+                block_fn, *xs, use_reentrant=False, preserve_rng_state=False)
+        else:
+            xs, block_feats = block_fn(*xs)
         feats.update(block_feats)
         if block_stop is not None:
             return feats

@@ -218,22 +218,40 @@ def _window(cols: Optional[Tuple[int, int, int]], m: int) -> Tuple[int, int, int
     return w, clo, chi
 
 
+def _row_span(rows: Optional[Tuple[int, int, int]], m: int) -> Tuple[int, int]:
+    """``(first, end)`` operand rows of a pixel-row window ``rows = (W, lo,
+    hi)``: image rows ``[lo, hi)`` of an (M = H*W, C) operand are its rows
+    ``[lo*W, hi*W)``, a contiguous span, so the kernels need no window of
+    their own."""
+    if rows is None:
+        return 0, m
+    w, lo, hi = (int(v) for v in rows)
+    if w <= 0 or m % w or not 0 <= lo <= hi <= m // w:
+        raise ValueError(f"a row window needs W > 0 dividing the {m} rows and 0 <= lo <= hi "
+                         f"<= {m // w if w > 0 else '?'}, got {rows}")
+    return lo * w, hi * w
+
+
 def gram(
-    f: torch.Tensor, *, count: LaunchCount, cols: Optional[Tuple[int, int, int]] = None
+    f: torch.Tensor, *, count: LaunchCount, cols: Optional[Tuple[int, int, int]] = None,
+    rows: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
     """Unnormalized fp32 Gram ``F^T F`` of an (M, C) bf16 activation; with
     ``cols = (W, clo, chi)`` only the rows whose pixel column ``r % W`` lies
-    in ``[clo, chi)`` count."""
+    in ``[clo, chi)`` count, and with ``rows = (W, lo, hi)`` only image rows
+    ``[lo, hi)`` (the span ``F[lo*W:hi*W]``; a mesh shard's own rows)."""
     m, c = f.shape
     _require(f, "f", torch.bfloat16, (m, c))
+    first, end = _row_span(rows, m)
+    f, m = f[first:end], end - first
     if c % 64:
         raise ValueError(f"Gram channels must be a multiple of 64, got {c}")
     win = _window(cols, m)
     lib = library()
-    rows = gram_rows_per_chunk(m, c)
-    part = torch.empty((-(-m // rows), c, c), dtype=torch.float32, device=f.device)
+    chunk = gram_rows_per_chunk(m, c)
+    part = torch.empty((-(-m // chunk), c, c), dtype=torch.float32, device=f.device)
     out = torch.empty((c, c), dtype=torch.float32, device=f.device)
-    err = lib.st_gram(_ptr(f), _ptr(part), _ptr(out), m, c, rows, *win, _stream())
+    err = lib.st_gram(_ptr(f), _ptr(part), _ptr(out), m, c, chunk, *win, _stream())
     _check_launch(lib, err, "gram")
     count.n += 1
     return out
@@ -242,22 +260,30 @@ def gram(
 def gram_fs(
     f: torch.Tensor, s: torch.Tensor, *, count: LaunchCount, relu_gate: bool = False,
     out_bf16: bool = False, cols: Optional[Tuple[int, int, int]] = None,
+    rows: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
     """``F S`` for F (M, C) bf16 and S (C, C) bf16: fp32 (M, C); with
     ``out_bf16`` rounded once to bf16; with ``relu_gate`` the bf16
     ``where(F > 0, F S, 0)``. With ``cols`` (as in :func:`gram`) the rows
-    outside the column window are zero."""
+    outside the column window are zero; with ``rows`` (as in :func:`gram`)
+    the kernel runs on the window's span only and writes it into the
+    output, whose rows outside the span are set to zero here."""
     m, c = f.shape
     _require(f, "f", torch.bfloat16, (m, c))
     _require(s, "s", torch.bfloat16, (c, c))
     if c % 64:
         raise ValueError(f"Gram channels must be a multiple of 64, got {c}")
-    win = _window(cols, m)
     half = relu_gate or out_bf16
     out = torch.empty((m, c), dtype=torch.bfloat16 if half else torch.float32, device=f.device)
+    first, end = _row_span(rows, m)
+    if rows is not None:
+        out[:first].zero_()
+        out[end:].zero_()
+    fw, ow = f[first:end], out[first:end]
+    win = _window(cols, end - first)
     lib = library()
-    err = lib.st_gram_fs(_ptr(f), _ptr(s), None if half else _ptr(out), _ptr(out) if half else None,
-                         int(relu_gate), m, c, *win, _stream())
+    err = lib.st_gram_fs(_ptr(fw), _ptr(s), None if half else _ptr(ow), _ptr(ow) if half else None,
+                         int(relu_gate), end - first, c, *win, _stream())
     _check_launch(lib, err, "gram_fs")
     count.n += 1
     return out

@@ -42,11 +42,16 @@ The weights reach them in three prepared forms, each made once per tensor
 as (32, 64) with rows 27..31 zero; the biases as fp32. Sizes: any even H and
 W; tiles ``H/16 * W/16 < 2^31`` and ``3 W < 2^31``.
 
+:func:`make_sharded_block1` is ``block1_packed`` on a 1-D spatial mesh
+(JAX ``block1_packed.py:730``): the conv pair's mesh form
+(``conv_pair.make_sharded_pair``) with Cin=3, both epilogues and the
+block-1 counter. ``block1_full`` and ``block1_tail`` have no mesh form, as
+in the reference, which runs the opt-in path on one device only.
+
 Left out from the TPU kernels: the W-pair lane packing and the packed im2col
 (``block1_packed.py``), the XLA-side ``_im2col3``, the row padding to 16
-(``_pad_h``), ``_tile_h``, the W-duplicated cotangent, the ``vmem.py``
-envelope, and the mesh form ``make_sharded_block1``. The kernels need even H
-and W and nothing else.
+(``_pad_h``), ``_tile_h``, the W-duplicated cotangent and the ``vmem.py``
+envelope. The kernels need even H and W and nothing else.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from style_transfer_tpu_torch.ops import losses
 from style_transfer_tpu_torch.ops.kernels import _launch, _weights
 from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
 from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
+from style_transfer_tpu_torch.parallel import mesh as M
 
 C = 64
 
@@ -69,10 +75,11 @@ full_launches = LaunchCount()
 tail_launches = LaunchCount()
 
 
-def block1_plain(x, k1, b1, k2, b2):
+def block1_plain(x, k1, b1, k2, b2, *, gram_rows=None, hw=None):
     """Block 1 in plain PyTorch ops (autograd gives the VJP): the plain
     version of :func:`block1_packed` and of :func:`block1_full`."""
-    return CP.conv_pair_plain(x, k1, b1, k2, b2, pool=True, gram=True)
+    return CP.conv_pair_plain(x, k1, b1, k2, b2, pool=True, gram=True, gram_rows=gram_rows,
+                              hw=hw)
 
 
 def block1_tail_plain(r1, k2, b2):
@@ -81,17 +88,34 @@ def block1_tail_plain(r1, k2, b2):
     return vgg.pool2x2(y2, "average"), losses.gram_matrix(r1)
 
 
-def block1_packed(x, k1, b1, k2, b2):
+def block1_packed(x, k1, b1, k2, b2, *, gram_rows=None, hw=None):
     """Whole VGG block 1 on the generic conv-pair kernels; see the module
-    docstring."""
+    docstring. ``gram_rows`` and ``hw`` are the conv pair's (a mesh
+    shard's Gram window and the global divisor)."""
     n, h, w, c = x.shape
     if n != 1 or c != 3 or h % 2 or w % 2:
         raise ValueError("block1_packed expects (1, even H, even W, 3)")
     if x.device.type == "cuda":
-        return CP.PairFunction.apply(x, k1, b1, k2, b2, True, True, launches)
+        return CP.PairFunction.apply(x, k1, b1, k2, b2, True, True, launches, gram_rows, hw)
     if x.device.type == "cpu":
-        return block1_plain(x, k1, b1, k2, b2)
+        return block1_plain(x, k1, b1, k2, b2, gram_rows=gram_rows, hw=hw)
     raise ValueError(f"block1_packed runs on CUDA or CPU tensors, got device {x.device}")
+
+
+def make_sharded_block1(mesh):
+    """:func:`block1_packed` on a 1-D spatial mesh (JAX
+    ``make_sharded_block1``): ``f(xs, k1, b1, k2, b2) -> (pool1 shards,
+    gram)`` for the preprocessed image as a list of H shards; each shard
+    runs block 1 on its rows plus ``conv_pair.HALO`` rows of each neighbour
+    (launches count on :data:`launches`, per shard), the Gram is summed on
+    the mesh's home device."""
+    def sharded_block1(xs, k1, b1, k2, b2):
+        def one(x, dev, rows, hw):
+            return block1_packed(x, *M.replicas(dev, k1, b1, k2, b2), gram_rows=rows, hw=hw)
+
+        return M.map_shards(one, xs, CP.HALO, pool=True, gram=True, home=mesh.home)
+
+    return sharded_block1
 
 
 def _sym(d_gram, hw: int, like):

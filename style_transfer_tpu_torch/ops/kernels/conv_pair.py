@@ -22,9 +22,22 @@ On a CUDA tensor the pair runs on the hand-written kernels of
 On a CPU tensor it runs :func:`conv_pair_plain` (``F.conv2d``, the port's
 pool and Gram) under autograd. Any other device raises.
 
+Two optional arguments serve the mesh: ``gram_rows = (lo, hi)`` takes the
+Gram over rows ``[lo, hi)`` of the first activation only (a shard's own
+rows, without its halo), and ``hw`` is its divisor, the whole image's H*W in
+place of the call's own; the backward's ``S`` takes the same divisor and its
+``r1 S`` term is zero outside the rows. The rows are a contiguous span of
+r1, so the Gram kernels run on that span (``_launch.gram(rows=)`` /
+``gram_fs(rows=)``, which zeroes the halo rows of ``r1 S`` around it).
+:func:`make_sharded_pair` is the mesh form (JAX ``make_sharded_pair``,
+``conv_pair.py:519``): each shard's rows plus :data:`HALO` rows of its
+neighbours through the pair, its own output rows kept, the Grams summed on
+the mesh's home device (``parallel/mesh.py``).
+
 Left out from the TPU kernel: the sublane tiling (``_tile_for``), W-chunking
 (``_w_chunks``), the row padding to a tile multiple, the ``vmem.py`` gates,
-and the mesh form ``make_sharded_pair``.
+and the global row offset ``off`` with its row masks (an edge shard here has
+no halo rows, so the kernel's own zero padding is the image's).
 """
 
 from __future__ import annotations
@@ -35,24 +48,36 @@ from style_transfer_tpu_torch.models import vgg
 from style_transfer_tpu_torch.ops import losses
 from style_transfer_tpu_torch.ops.kernels import _launch
 from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
+from style_transfer_tpu_torch.parallel import mesh as M
 
 #: Kernel launches made by the conv-pair wrapper (and its block-2 instance).
 launches = LaunchCount()
 
+#: Halo rows each way of a shard under :func:`make_sharded_pair`: the
+#: pair's reach (two 3x3 convs), even for the pool's row pairs. The TPU's
+#: 4 (``conv_pair.py:460``) also covers its clamped edge blocks.
+HALO = 2
 
-def conv_pair_plain(x, k1, b1, k2, b2, *, pool: bool, gram: bool):
+
+def conv_pair_plain(x, k1, b1, k2, b2, *, pool: bool, gram: bool, gram_rows=None, hw=None):
     """The pair in plain PyTorch ops (autograd gives the VJP)."""
     r1 = torch.relu(vgg.conv3x3(x, k1, b1))
     y2 = torch.relu(vgg.conv3x3(r1, k2, b2))
     out = vgg.pool2x2(y2, "average") if pool else y2
-    return (out, losses.gram_matrix(r1)) if gram else out
+    return (out, losses.gram_matrix(r1, rows=gram_rows, hw=hw)) if gram else out
+
+
+def _rows(gram_rows, w: int):
+    """``_launch``'s ``rows = (W, lo, hi)`` for a ``gram_rows`` window."""
+    return None if gram_rows is None else (w, *gram_rows)
 
 
 class PairFunction(torch.autograd.Function):
     """The pair on the CUDA kernels; ``count`` receives the launches."""
 
     @staticmethod
-    def forward(ctx, x, k1, b1, k2, b2, pool: bool, gram: bool, count: LaunchCount):
+    def forward(ctx, x, k1, b1, k2, b2, pool: bool, gram: bool, count: LaunchCount,
+                gram_rows=None, hw=None):
         n, h, w, _ = x.shape
         if n != 1 or (pool and (h % 2 or w % 2)):
             raise ValueError(f"conv pair expects (1, even H, even W, C), got {tuple(x.shape)}")
@@ -69,9 +94,10 @@ class PairFunction(torch.autograd.Function):
         out = pooled if pool else y2
         ctx.save_for_backward(r1, mask2, k1, k2)
         ctx.pool, ctx.gram, ctx.count = pool, gram, count
+        ctx.rows, ctx.hw = _rows(gram_rows, w), float(h * w if hw is None else hw)
         if gram:
             cmid = r1.shape[2]
-            g = _launch.gram(r1.view(h * w, cmid), count=count) / float(h * w)
+            g = _launch.gram(r1.view(h * w, cmid), rows=ctx.rows, count=count) / ctx.hw
             return out[None], g
         return out[None]
 
@@ -82,8 +108,9 @@ class PairFunction(torch.autograd.Function):
         count = ctx.count
         add = None
         if ctx.gram:
-            s = ((d_gram + d_gram.T) / float(h * w)).to(torch.bfloat16).contiguous()
-            add = _launch.gram_fs(r1.view(h * w, cmid), s, count=count).view(h, w, cmid)
+            s = ((d_gram + d_gram.T) / ctx.hw).to(torch.bfloat16).contiguous()
+            add = _launch.gram_fs(r1.view(h * w, cmid), s, rows=ctx.rows,
+                                  count=count).view(h, w, cmid)
         dpre1 = _launch.conv3x3_bwd_data(
             d_out[0].to(torch.bfloat16).contiguous(), _launch.taps_transposed(k2),
             hw=(h, w), in_mask=mask2, unpool=ctx.pool, add=add, gate=r1, count=count,
@@ -91,16 +118,17 @@ class PairFunction(torch.autograd.Function):
         dx = _launch.conv3x3_bwd_data(
             dpre1, _launch.taps_transposed(k1), hw=(h, w), count=count
         )
-        return dx[None], None, None, None, None, None, None, None
+        return dx[None], None, None, None, None, None, None, None, None, None
 
 
-def conv_pair(x, k1, b1, k2, b2, *, pool: bool, gram: bool):
+def conv_pair(x, k1, b1, k2, b2, *, pool: bool, gram: bool, gram_rows=None, hw=None):
     """The fused pair: CUDA kernels for a CUDA tensor, :func:`conv_pair_plain`
     for a CPU tensor."""
     if x.device.type == "cuda":
-        return PairFunction.apply(x, k1, b1, k2, b2, pool, gram, launches)
+        return PairFunction.apply(x, k1, b1, k2, b2, pool, gram, launches, gram_rows, hw)
     if x.device.type == "cpu":
-        return conv_pair_plain(x, k1, b1, k2, b2, pool=pool, gram=gram)
+        return conv_pair_plain(x, k1, b1, k2, b2, pool=pool, gram=gram, gram_rows=gram_rows,
+                               hw=hw)
     raise ValueError(f"conv_pair runs on CUDA or CPU tensors, got device {x.device}")
 
 
@@ -112,3 +140,22 @@ def pair_gram(x, k1, b1, k2, b2):
 def pair_pool(x, k1, b1, k2, b2):
     """Block-3/4 tail pair: two convs and the 2x2 average pool."""
     return conv_pair(x, k1, b1, k2, b2, pool=True, gram=False)
+
+
+def make_sharded_pair(mesh, *, pool: bool, gram: bool):
+    """:func:`conv_pair` on a 1-D spatial mesh (JAX ``make_sharded_pair``):
+    ``f(xs, k1, b1, k2, b2)`` takes the input as a list of H shards, one per
+    mesh device, and returns the output as such a list (and the Gram on the
+    mesh's home device). Each shard runs the pair on its rows plus
+    :data:`HALO` rows of each neighbour (``parallel.mesh.with_halo``), keeps
+    its own output rows, and takes the Gram over its own rows of the first
+    activation with the global H*W; the Grams are summed on the home device.
+    Launches count on :data:`launches`, per shard."""
+    def sharded_pair(xs, k1, b1, k2, b2):
+        def one(x, dev, rows, hw):
+            return conv_pair(x, *M.replicas(dev, k1, b1, k2, b2), pool=pool, gram=gram,
+                             gram_rows=rows, hw=hw)
+
+        return M.map_shards(one, xs, HALO, pool=pool, gram=gram, home=mesh.home)
+
+    return sharded_pair

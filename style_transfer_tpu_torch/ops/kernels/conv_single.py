@@ -42,10 +42,19 @@ the reference gives every slice but the last the full owned width, so where
 slice-count rule never picks one) it counts zero-padded columns beyond the
 image, whose activations are ``relu(bias)``, in the Gram.
 
+The mesh takes ``gram_rows = (lo, hi)`` and ``hw`` as the conv pair does
+(``conv_pair.py``): the Gram over rows ``[lo, hi)`` only, divided by the
+global H*W, and the backward's ``y S`` zero outside them.
+:func:`make_sharded_single` and :func:`make_sharded_gram_tail` are the
+mesh forms (JAX ``conv_single.py:635``, ``:428``), and
+``make_pair_of_singles(mesh=...)`` chains two sharded singles, as the
+reference does. Each shard runs the single on its rows plus one halo row of
+each neighbour (the reach of a 3x3 conv), two where the pool pairs rows.
+
 Left out from the TPU kernel: its row tiling and W-chunking (``_tile_for``,
-``_w_chunks``), the row padding, the global row offset and row window that
-serve the mesh, and the mesh forms ``make_sharded_single`` and
-``make_sharded_gram_tail``.
+``_w_chunks``), the row padding, and the global row offset ``off`` with its
+row masks (an edge shard here has no halo rows); the W-sliced forms have no
+mesh form, as the port runs them unsliced.
 """
 
 from __future__ import annotations
@@ -57,6 +66,8 @@ from style_transfer_tpu_torch.models import vgg
 from style_transfer_tpu_torch.ops import losses
 from style_transfer_tpu_torch.ops.kernels import _launch
 from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
+from style_transfer_tpu_torch.ops.kernels.conv_pair import _rows
+from style_transfer_tpu_torch.parallel import mesh as M
 
 #: Kernel launches made by the single-conv wrappers (the chain's singles).
 launches = LaunchCount()
@@ -67,7 +78,8 @@ gram_tail_launches = LaunchCount()
 WIDE_HALO = 8
 
 
-def conv_single_plain(x, k, b, *, pool: bool, gram: bool, gram_cols=None):
+def conv_single_plain(x, k, b, *, pool: bool, gram: bool, gram_cols=None, gram_rows=None,
+                      hw=None):
     """The single in plain PyTorch ops (autograd gives the VJP)."""
     y = torch.relu(vgg.conv3x3(x, k, b))
     out = vgg.pool2x2(y, "average") if pool else y
@@ -77,14 +89,15 @@ def conv_single_plain(x, k, b, *, pool: bool, gram: bool, gram_cols=None):
     if gram_cols is not None:
         col = torch.arange(y.shape[2], device=y.device)
         f = y * ((col >= gram_cols[0]) & (col < gram_cols[1])).to(y.dtype)[:, None]
-    return out, losses.gram_matrix(f)
+    return out, losses.gram_matrix(f, rows=gram_rows, hw=hw)
 
 
 class SingleFunction(torch.autograd.Function):
     """The single on the CUDA kernels; ``count`` receives the launches."""
 
     @staticmethod
-    def forward(ctx, x, k, b, pool: bool, gram: bool, gram_cols, count: LaunchCount):
+    def forward(ctx, x, k, b, pool: bool, gram: bool, gram_cols, count: LaunchCount,
+                gram_rows=None, hw=None):
         if x.dtype != torch.bfloat16:
             raise ValueError(f"the conv-single kernel takes bf16 input, got {x.dtype}")
         _, h, w, _ = x.shape
@@ -96,10 +109,12 @@ class SingleFunction(torch.autograd.Function):
         ctx.save_for_backward(y, k)
         ctx.pool, ctx.gram, ctx.count = pool, gram, count
         ctx.cols = None if gram_cols is None else (w, *gram_cols)
+        ctx.rows, ctx.hw = _rows(gram_rows, w), float(h * w if hw is None else hw)
         out = (pooled if pool else y)[None]
         if gram:
             cout = y.shape[2]
-            g = _launch.gram(y.view(h * w, cout), cols=ctx.cols, count=count) / float(h * w)
+            g = _launch.gram(y.view(h * w, cout), cols=ctx.cols, rows=ctx.rows,
+                             count=count) / ctx.hw
             return out, g
         return out
 
@@ -110,26 +125,28 @@ class SingleFunction(torch.autograd.Function):
         bf = torch.bfloat16
         add = None
         if ctx.gram and d_gram is not None:
-            s = ((d_gram + d_gram.T) / float(h * w)).to(bf).contiguous()
+            s = ((d_gram + d_gram.T) / ctx.hw).to(bf).contiguous()
             add = _launch.gram_fs(
-                y.view(h * w, cout), s, cols=ctx.cols, count=ctx.count
+                y.view(h * w, cout), s, cols=ctx.cols, rows=ctx.rows, count=ctx.count
             ).view(h, w, cout)
         dy = None if d_out is None else d_out[0].to(bf).contiguous()
         dx = _launch.conv3x3_bwd_data(
             dy, _launch.taps_transposed(k), hw=(h, w), unpool=ctx.pool,
             pre_add=add, pre_gate=y, count=ctx.count,
         )
-        return dx[None], None, None, None, None, None, None
+        return dx[None], None, None, None, None, None, None, None, None
 
 
-def _single(x, k, b, *, pool: bool, gram: bool, gram_cols=None, count: LaunchCount):
+def _single(x, k, b, *, pool: bool, gram: bool, gram_cols=None, count: LaunchCount,
+            gram_rows=None, hw=None):
     n, h, w, _ = x.shape
     if n != 1 or (pool and (h % 2 or w % 2)):
         raise ValueError(f"conv single expects (1, even H, even W, C), got {tuple(x.shape)}")
     if x.device.type == "cuda":
-        return SingleFunction.apply(x, k, b, pool, gram, gram_cols, count)
+        return SingleFunction.apply(x, k, b, pool, gram, gram_cols, count, gram_rows, hw)
     if x.device.type == "cpu":
-        return conv_single_plain(x, k, b, pool=pool, gram=gram, gram_cols=gram_cols)
+        return conv_single_plain(x, k, b, pool=pool, gram=gram, gram_cols=gram_cols,
+                                 gram_rows=gram_rows, hw=hw)
     raise ValueError(f"conv_single runs on CUDA or CPU tensors, got device {x.device}")
 
 
@@ -172,12 +189,48 @@ def _chain(first, second, gram: bool):
     return pair
 
 
-def make_pair_of_singles(*, pool: bool, gram: bool):
+def make_pair_of_singles(*, pool: bool, gram: bool, mesh=None):
     """A drop-in for ``conv_pair.conv_pair`` built from two singles: same
     signature ``f(x, k1, b1, k2, b2)`` and outputs (``(out, gram)`` when
-    ``gram`` else ``out``, the Gram of the first activation)."""
+    ``gram`` else ``out``, the Gram of the first activation). With a
+    ``mesh``, the drop-in for ``conv_pair.make_sharded_pair``: two
+    :func:`make_sharded_single` s on lists of H shards."""
+    if mesh is not None:
+        return _chain(make_sharded_single(mesh, pool=False, gram=gram),
+                      make_sharded_single(mesh, pool=pool, gram=False), gram)
     return _chain(single_gram if gram else single_plain,
                   single_pool if pool else single_plain, gram)
+
+
+def make_sharded_single(mesh, *, pool: bool, gram: bool):
+    """:func:`make_conv_single` on a 1-D spatial mesh (JAX
+    ``make_sharded_single``): ``f(xs, k, b)`` on a list of H shards returns
+    the output shards (and the Gram, summed on the mesh's home device). Each
+    shard runs the single on its rows plus one row of each neighbour, two
+    when pooling; launches count on :data:`launches`, per shard."""
+    def sharded_single(xs, k, b):
+        def one(x, dev, rows, hw):
+            return _single(x, *M.replicas(dev, k, b), pool=pool, gram=gram, count=launches,
+                           gram_rows=rows, hw=hw)
+
+        return M.map_shards(one, xs, 2 if pool else 1, pool=pool, gram=gram, home=mesh.home)
+
+    return sharded_single
+
+
+def make_sharded_gram_tail(mesh):
+    """:func:`gram_tail` on a 1-D spatial mesh (JAX
+    ``make_sharded_gram_tail``): ``f(xs, k, b) -> gram`` on the home device,
+    each shard's single run on its rows plus one row of each neighbour;
+    launches count on :data:`gram_tail_launches`, per shard."""
+    def sharded_gram_tail(xs, k, b):
+        def one(x, dev, rows, hw):
+            return _single(x, *M.replicas(dev, k, b), pool=False, gram=True,
+                           count=gram_tail_launches, gram_rows=rows, hw=hw)[1]
+
+        return M.map_shards(one, xs, 1, pool=False, gram=True, out=False, home=mesh.home)
+
+    return sharded_gram_tail
 
 
 def _owned(w: int, n: int) -> int:

@@ -18,11 +18,16 @@ from typing import Dict, Mapping, Optional, Sequence
 import torch
 
 
-def gram_matrix(feat: torch.Tensor) -> torch.Tensor:
-    """(N, H, W, C) activations -> (C, C) float32 Gram / (N*H*W)."""
+def gram_matrix(feat: torch.Tensor, *, rows=None, hw=None) -> torch.Tensor:
+    """(N, H, W, C) activations -> (C, C) float32 Gram / (N*H*W). A mesh
+    shard's Gram: ``rows = (lo, hi)`` sums over rows ``[lo, hi)`` of H only
+    (the shard's own rows, not its halo), and ``hw`` divides by that count
+    (the whole image's H*W) in place of the rows summed."""
+    if rows is not None:
+        feat = feat[:, rows[0]:rows[1]]
     c = feat.shape[-1]
     f = feat.reshape(-1, c).to(torch.float32)
-    return (f.T @ f) / float(f.shape[0])
+    return (f.T @ f) / float(f.shape[0] if hw is None else hw)
 
 
 def content_loss(feat: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -44,6 +44,9 @@ class ProgressEvent:
     # "opt_state_leaves", "scale_index", "iteration"[, "ema"]}, the input of
     # stylize(resume_state=...) (utils/ckpt.py).
     get_state: Optional[Callable[[], dict]] = None
+    # Mesh shards this scale's activations ran on (parallel/mesh.py: one per
+    # 16 image rows at most; 1 without a mesh).
+    shards: int = 1
 
     @property
     def loss(self) -> float:

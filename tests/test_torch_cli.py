@@ -153,7 +153,7 @@ def test_losses_match_the_jax_cli_on_one_weights_file(tmp_path, capsys):
     (["--packed-block3", "on"], "structural gates"),
     (["--packed-block4", "off"], "only auto"),
     (["--grid-snap", "on"], "--grid-snap auto or off"),
-    (["--devices", "2"], "queue 1 item 6"),
+    (["--devices", "99"], "CUDA device(s) visible"),
     (["--precision", "fp32"], "--unfused for the plain path in fp32"),
 ])
 def test_departures_exit_2_with_their_message(images, capsys, flags, message):

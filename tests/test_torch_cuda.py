@@ -431,3 +431,38 @@ def test_cuda_pipelined_chunks_match_sequential(cuda_device):
         assert all(np.array_equal(x.losses[k], y.losses[k]) for k in x.losses)
         assert np.array_equal(u, v) and np.array_equal(y.get_image(), v)
     assert api._pipeline_auto(StylizeConfig(), 128 * 128)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_of_two_shards_matches_unsharded(cuda_device):
+    """The objective on a mesh of two shards of the one card
+    (``[cuda:0] * 2``) against the unsharded chain: loss terms and image
+    gradient within the mesh limits of ``tolerances.py``, and every chain
+    kernel launched twice as often."""
+    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
+    from style_transfer_tpu_torch.parallel import mesh as M
+
+    rng = np.random.RandomState(0)
+    content = rng.rand(128, 128, 3).astype(np.float32)
+    style = rng.rand(128, 128, 3).astype(np.float32)
+    image = np.clip(content + 0.1 * rng.randn(128, 128, 3), 0, 1).astype(np.float32)
+    cfg = StylizeConfig(size=128)
+    chain = [B1.launches, CP.launches, CG.launches]
+    out = []
+    for mesh in (None, M.make_mesh(devices=[cuda_device] * 2)):
+        st = StyleTransfer(device=cuda_device, mesh=mesh)
+        c = st._capture_content(cfg, torch.from_numpy(content)[None].to(cuda_device))
+        s = st._capture_style(cfg, torch.from_numpy(style)[None].to(cuda_device))
+        before = [k.n for k in chain]
+        x = torch.from_numpy(image)[None].to(cuda_device).requires_grad_(True)
+        loss, terms = st._build_objective(cfg)(x, c, s)
+        (g,) = torch.autograd.grad(loss, x)
+        out.append(({k: float(v) for k, v in terms.items()}, g.double().cpu(),
+                    [k.n - b for k, b in zip(chain, before)]))
+    (t1, g1, n1), (t2, g2, n2) = out
+    for k in t1:
+        assert abs(t2[k] - t1[k]) <= T.TOL_MESH_TERMS * abs(t1[k])
+    assert float((g2 - g1).norm() / g1.norm()) <= T.TOL_MESH_GRAD
+    cos = float((g2.flatten() @ g1.flatten()) / (g1.norm() * g2.norm()))
+    assert cos >= T.TOL_MESH_COS
+    assert all(a > 0 for a in n1) and n2 == [2 * a for a in n1]

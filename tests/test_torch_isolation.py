@@ -42,6 +42,9 @@ MODULES = [
     "style_transfer_tpu_torch.ops.kernels.epilogue",
     "style_transfer_tpu_torch.ops.kernels.gram",
     "style_transfer_tpu_torch.ops.kernels.tolerances",
+    "style_transfer_tpu_torch.parallel",
+    "style_transfer_tpu_torch.parallel.dryrun",
+    "style_transfer_tpu_torch.parallel.mesh",
     "style_transfer_tpu_torch.utils.ckpt",
     "style_transfer_tpu_torch.utils.imgio",
     "style_transfer_tpu_torch.utils.progress",
