@@ -145,7 +145,10 @@ Phases, one JSON object per line on stdout:
    the natural route and with pairs and ``gram_tail`` forced, the loss terms
    and image gradient against the unsharded chain and the plain fp32
    witness, launches per kernel and per shard, an Adam step's wall and
-   device ms and peak memory; the five sharded kernels alone at that
+   device ms and peak memory; at 2048x2048 and 512x512 a mesh of one shard
+   and one of two against no mesh, beside the unsharded chain with its
+   style targets perturbed by 1e-7 relative (the one-shard mesh must agree
+   with no mesh to 1e-5); the five sharded kernels alone at that
    scale's shapes with 8 shards against the unsharded kernels, with both
    times; 512x512 with 8 shards; configuration 5 through ``stylize()``
    (3840x2160 over its five scales, ``--steps`` a scale, 8 shards) against
@@ -153,12 +156,24 @@ Phases, one JSON object per line on stdout:
    ``parallel.dryrun.dryrun_multichip(8, [cuda:0] * 8)``; and, where more
    than one card is visible, parts 1 and 3 over real devices (else a line
    says they did not run).
+16. surface — what the port adds beside the loop: a torchvision-layout
+   ``state_dict`` of the fixture through the port's converter (``python -m
+   style_transfer_tpu_torch.scripts.convert_weights``, with no JAX module
+   loaded), read back bit for bit, and ``cli.main`` at 512 px on it and on
+   ``--random-weights`` (the same PNG bits; the chain's kernels launched),
+   the ``caffe-npz`` route on the card; ``scripts/validate_kernels.py``
+   over its twelve blocks at 1024, 2048, 4096 and 1920x1080, every record
+   ``ok``; ``make_conv_pair`` bit-equal to ``conv_pair``; ``None`` weight
+   gradients through every kernel wrapper and mesh form with the input
+   gradient unchanged; the ``VGG`` module and every resize method on the
+   card against the CPU; ``python -m style_transfer_tpu_torch.examples.
+   stylize`` on the converted weights.
 
 Each stylize phase, each arm of the objective phase and the lbfgs phase's
 configuration-4 run, each ``cli.main`` run of the cli phase and each run of
-the pipeline phase's bit-equality and gap parts and each objective evaluation
-of the mesh phase set every launch count to 0 just before they run and read
-them all just after. Then a
+the pipeline phase's bit-equality and gap parts, each objective evaluation
+of the mesh phase and each ``cli.main`` run of the surface phase set every
+launch count to 0 just before they run and read them all just after. Then a
 ``{"kernels": [...]}`` summary line (eleven kernels, each with the launches
 of the phase whose path runs it, forward and backward kernels alike, its
 error, its time, the plain version's, the library call's and its bound, for
@@ -2101,15 +2116,22 @@ def cli_web(torch, io):
         raise AssertionError(f"cli: --web served {got} during the run")
 
 
-def cli_python_m(io):
-    """``python -m style_transfer_tpu_torch`` in a subprocess (see
-    :func:`cli_check`, part 6)."""
+def _port_env():
+    """The repository's root and an environment whose ``PYTHONPATH`` starts
+    there, for ``python -m`` runs of the port in a subprocess."""
     import os
     from pathlib import Path
 
     repo = Path(__file__).resolve().parent
     env = dict(os.environ)
     env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
+    return repo, env
+
+
+def cli_python_m(io):
+    """``python -m style_transfer_tpu_torch`` in a subprocess (see
+    :func:`cli_check`, part 6)."""
+    repo, env = _port_env()
     pm = [sys.executable, "-m", "style_transfer_tpu_torch"]
     t0 = time.perf_counter()
     version = subprocess.run(pm + ["--version"], cwd=repo, env=env, capture_output=True,
@@ -2733,15 +2755,22 @@ def _mesh_setup(torch, st, cfg, content, style):
     return c, st._capture_style(cfg, s_img)
 
 
-def _mesh_objective(torch, st, cfg, content, style, image_np, *, time_it=True):
+def _mesh_objective(torch, st, cfg, content, style, image_np, *, time_it=True,
+                    style_noise=0.0):
     """The objective of ``st`` at one image: its loss terms and image
     gradient, the launches of one evaluation with its backward (every count
     set to 0 just before and read just after), the forward launches per
     shard, the route, and, with ``time_it``, an Adam step's wall and device
-    ms and the peak device memory of a step."""
+    ms and the peak device memory of a step. ``style_noise`` scales each
+    style target by ``1 + style_noise * N(0, 1)`` (seeded): a change of the
+    targets' fp32 rounding, as a change of summation order makes."""
     from style_transfer_tpu_torch.optim import make_step_fn
 
     c, s = _mesh_setup(torch, st, cfg, content, style)
+    if style_noise:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        s = {k: v * (1 + style_noise * torch.randn(v.shape, generator=gen, device=v.device))
+             for k, v in s.items()}
     objective = st._build_objective(cfg)
     image = torch.from_numpy(image_np)[None].cuda()
     counters = _counters()
@@ -2912,6 +2941,57 @@ def _mesh_objectives(torch, params, mean, std, *, hw, shards, routes, devices, w
                 if bad:
                     failures.append(f"{h}x{w} {route} {n} shards: {bad}")
     return failures, launches
+
+
+#: A mesh of one shard against no mesh: its glue is the identity on one
+#: shard, so terms and gradient must agree to this (relative).
+ONE_SHARD_TOL = 1e-5
+#: The relative fp32 perturbation of the style targets whose effect on the
+#: unsharded chain's gradient is printed beside the meshes' gaps.
+STYLE_NOISE = 1e-7
+
+
+def _mesh_one_shard(torch, params, mean, std, side):
+    """Part 1b of :func:`mesh_check`: at ``side`` x ``side`` on the natural
+    route, a mesh of one shard (``[cuda:0]``) and one of two shards against
+    no mesh, each also against the plain fp32 witness, and beside them the
+    unsharded chain with its style targets scaled by ``1 + 1e-7 N(0, 1)``
+    (:data:`STYLE_NOISE`): how far the bf16 chain's gradient moves when only
+    the fp32 rounding of its targets changes, as a mesh's Gram partial sums
+    change it. Returns the failures: the one-shard mesh must agree with no
+    mesh to :data:`ONE_SHARD_TOL`."""
+    import numpy as np
+
+    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
+    from style_transfer_tpu_torch.parallel import mesh as M
+
+    r = np.random.RandomState(side)  # the inputs of _mesh_objectives at this size
+    content = r.rand(side, side, 3).astype(np.float32)
+    style = r.rand(side, side, 3).astype(np.float32)
+    image = np.clip(content + 0.1 * r.randn(side, side, 3), 0, 1).astype(np.float32)
+    cfg = StylizeConfig(size=(side, side))
+    st32 = StyleTransfer(params, mean=mean, std=std, device="cuda", compute_dtype=torch.float32)
+    wit = _mesh_objective(torch, st32, StylizeConfig(size=(side, side), use_fused=False),
+                          content, style, image, time_it=False)
+
+    def run(mesh=None, noise=0.0):
+        st = StyleTransfer(params, mean=mean, std=std, device="cuda", mesh=mesh)
+        return _mesh_objective(torch, st, cfg, content, style, image, time_it=False,
+                               style_noise=noise)
+
+    ref = run()
+    runs = {"one_shard": run(M.make_mesh(devices=["cuda:0"])),
+            "two_shards": run(M.make_mesh(devices=["cuda:0"] * 2)),
+            "unsharded_style_targets_1e-7": run(noise=STYLE_NOISE)}
+    rows = {k: {"vs_unsharded": _compare(v, ref), "vs_plain_fp32": _compare(v, wit),
+                "route": v["route"], "launches": v["launches"]} for k, v in runs.items()}
+    one = rows["one_shard"]["vs_unsharded"]
+    emit({"phase": "mesh", "part": f"one_shard_{side}x{side}", "route": "natural",
+          "unsharded_vs_plain_fp32": _compare(ref, wit), "unsharded_route": ref["route"],
+          **rows, "one_shard_tol": ONE_SHARD_TOL})
+    if max(one["term_rel"].values()) > ONE_SHARD_TOL or one["grad_rel"] > ONE_SHARD_TOL:
+        return [f"{side}x{side}: a mesh of one shard departs from no mesh: {one}"]
+    return []
 
 
 def _mesh_forms(torch, params, n, side):
@@ -3109,7 +3189,11 @@ def mesh_check(torch, params, mean, std, steps):
        per kernel (N times the unsharded chain's) and forward launches per
        shard (every kernel on every shard), an Adam step's wall and device
        ms and peak MiB (within 1.2x the unsharded peak grown by the halo
-       rows: no full-size gather); then each of the five sharded kernels
+       rows: no full-size gather); then, at 2048x2048 and 512x512, a mesh
+       of one shard and one of two against no mesh, beside the unsharded
+       chain with its style targets perturbed by 1e-7 relative (where the
+       meshes' gradient gap comes from; the one-shard mesh must agree with
+       no mesh to 1e-5); then each of the five sharded kernels
        alone at the scale's shapes with 8 shards against the unsharded
        kernel, with both device times and the halo's share of the rows;
     2. 512x512 and 128x128 with 8 shards (block 4 at 8 and 2 rows a shard,
@@ -3135,6 +3219,8 @@ def mesh_check(torch, params, mean, std, steps):
     failures, launches = _mesh_objectives(torch, params, mean, std, hw=(MESH_SIDE, MESH_SIDE),
                                           shards=MESH_SHARDS, routes=("natural", "forced"),
                                           devices=one, witness=True)
+    for side in (MESH_SIDE, MESH_SMALL_SIDE):
+        failures += _mesh_one_shard(torch, params, mean, std, side)
     forms_fail, forms = _mesh_forms(torch, params, n_max, MESH_SIDE)
     failures += forms_fail
     for hw in ((MESH_SMALL_SIDE,) * 2, (MESH_TINY_SIDE,) * 2, CONFIG5_ODD_HW):
@@ -3164,8 +3250,303 @@ def mesh_check(torch, params, mean, std, steps):
             for k in MESH_KERNELS}
 
 
+# The surface phase: the validator's print sizes, and the plain VGG on the
+# card against the CPU (fp32, TF32 off: summation order only).
+VALIDATE_RUNS = (((1024, 2048, 4096), None), ((1920,), 1080))  # (sizes, height)
+TOL_VGG_DEVICES = 1e-4
+TOL_RESIZE_DEVICES = 1e-5
+
+
+def _surface_converter(torch, params, tmp, steps):
+    """Part 1 of :func:`surface_check`; returns the converted ``.npz``."""
+    import numpy as np
+
+    from style_transfer_tpu_torch.models import vgg
+    from style_transfer_tpu_torch.models.weights import load_npz, random_fixture
+    from style_transfer_tpu_torch.scripts import convert_weights as CW
+    from style_transfer_tpu_torch.utils import imgio
+
+    sd = {}  # torchvision layout: features.<idx>.weight OIHW
+    for name, idx in zip(vgg.CONV_NAMES, CW._TORCH_FEATURE_IDX["vgg19"]):
+        sd[f"features.{idx}.weight"] = params[name]["kernel"].permute(3, 2, 0, 1).contiguous()
+        sd[f"features.{idx}.bias"] = params[name]["bias"].clone()
+    pth, npz = f"{tmp}/vgg19.pth", f"{tmp}/vgg19.npz"
+    torch.save(sd, pth)
+    repo, env = _port_env()
+    code = ("import runpy, sys\n"
+            "src, dst = sys.argv[1:3]\n"
+            "sys.argv = ['convert_weights', 'torch', src, dst]\n"
+            "try:\n"
+            "    runpy.run_module('style_transfer_tpu_torch.scripts.convert_weights',"
+            " run_name='__main__', alter_sys=True)\n"
+            "except SystemExit as e:\n"
+            "    assert not e.code, e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib',"
+            " 'style_transfer_tpu'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code, pth, npz], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"surface: the converter failed or loaded JAX: {proc.stderr[-2000:]}")
+    loaded, mean_l, std_l = load_npz(npz)
+    bits = all(torch.equal(loaded[n][k], params[n][k]) for n in vgg.CONV_NAMES
+               for k in ("kernel", "bias"))
+    r = np.random.RandomState(17)
+    content, style = f"{tmp}/content.png", f"{tmp}/style.png"
+    imgio.save_image(r.rand(512, 512, 3).astype(np.float32), content)
+    imgio.save_image(r.rand(512, 512, 3).astype(np.float32), style)
+    common = [content, style, "--size", "512", "--min-scale", "256", "-i", str(steps),
+              "--chunk-size", "10", "--print-every", "100000"]
+    runs, outs = {}, {}
+    for how, flags in (("weights", ["--weights", npz]), ("random_weights", ["--random-weights"])):
+        outs[how] = f"{tmp}/cli_{how}.png"
+        runs[how] = _cli_run(torch, common + flags + ["-o", outs[how]])
+    same_png = bool(np.array_equal(_png(outs["weights"]), _png(outs["random_weights"])))
+    mean_f, std_f = random_fixture(0)[1:]
+    same_meta = bool(np.array_equal(mean_l, mean_f) and np.array_equal(std_l, std_f))
+    missing = {how: [k for k in CLI_CHAIN if not run["launches"].get(k)]
+               for how, run in runs.items()}
+
+    # the caffe route, loaded on the card
+    flat = {}
+    for name in vgg.CONV_NAMES:
+        flat[f"{name}_w"] = params[name]["kernel"].permute(3, 2, 0, 1).numpy()
+        flat[f"{name}_b"] = params[name]["bias"].numpy()
+    np.savez(f"{tmp}/caffe.npz", **flat)
+    CW.convert_caffe_npz(f"{tmp}/caffe.npz", f"{tmp}/caffe_vgg19.npz")
+    caffe, _, caffe_std = load_npz(f"{tmp}/caffe_vgg19.npz")
+    feats = vgg.VGG(caffe).to("cuda")(torch.rand(1, 64, 64, 3, device="cuda"),
+                                       ["conv1_1", "conv5_1"])
+    caffe_finite = all(bool(torch.isfinite(f).all()) for f in feats.values())
+    caffe_flipped = torch.equal(caffe["conv1_1"]["kernel"], params["conv1_1"]["kernel"].flip(2))
+    emit({"phase": "surface", "part": "converter_to_cli", "converter_rc": proc.returncode,
+          "jax_loaded": False, "load_npz_bit_equal": bits, "same_metadata": same_meta,
+          "cli_png_bit_equal": same_png,
+          "cli_seconds": {k: v["seconds"] for k, v in runs.items()},
+          "cli_launches": {k: v["launches"] for k, v in runs.items()},
+          "caffe_features_finite": caffe_finite, "caffe_conv1_1_bgr_flipped": caffe_flipped,
+          "caffe_std": [float(v) for v in caffe_std]})
+    if not same_png:
+        emit({"phase": "surface", "part": "converter_to_cli",
+              "why_pngs_differ": "metadata differ" if not same_meta else
+              "same weights and metadata, different bits: the run is not deterministic"})
+    if not (bits and same_meta and same_png and caffe_finite and caffe_flipped) or any(
+            missing.values()):
+        raise AssertionError(f"surface: converter to CLI failed (bits {bits}, metadata "
+                             f"{same_meta}, png {same_png}, caffe {caffe_finite}/"
+                             f"{caffe_flipped}, kernels not launched {missing})")
+    return npz
+
+
+def _surface_validator(torch):
+    """Part 2 of :func:`surface_check`: the validator's records."""
+    import io
+
+    from style_transfer_tpu_torch.scripts import validate_kernels as VK
+
+    failures = []
+    for sizes, height in VALIDATE_RUNS:
+        argv = ["--sizes", *map(str, sizes), "--repeats", "5", "--blocks", *VK.BLOCKS]
+        argv += [] if height is None else ["--height", str(height)]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = VK.main(argv)
+        records = [json.loads(line) for line in buf.getvalue().splitlines()
+                   if line.startswith("{")]
+        for rec in records:
+            emit({"phase": "surface", "part": "validate_kernels", **rec})
+        bad = [f"{r['kernel']}@{r['size']}" for r in records if not r["ok"] or r["route"] != "cuda"]
+        if rc != 0 or bad or len(records) != len(VK.BLOCKS) * len(sizes):
+            failures.append(f"validate_kernels {argv}: rc {rc}, failed {bad}, "
+                            f"{len(records)} records")
+    return failures
+
+
+def _surface_conv_pair(torch, params):
+    """Part 3: ``make_conv_pair`` bit-equal to ``conv_pair`` on the card."""
+    from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.rand(1, 128, 128, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    ws = [params[n][k].cuda() for n in ("conv3_1", "conv3_2") for k in ("kernel", "bias")]
+    rows, failures = [], []
+    for pool in (False, True):
+        for gram in (False, True):
+            CP.launches.n = 0
+            got = CP.make_conv_pair(pool=pool, gram=gram)(x, *ws)
+            launched = CP.launches.n
+            want = CP.conv_pair(x, *ws, pool=pool, gram=gram)
+            got, want = (got, want) if gram else ((got,), (want,))
+            equal = all(torch.equal(a, b) for a, b in zip(got, want))
+            rows.append({"pool": pool, "gram": gram, "bit_equal": equal, "launches": launched})
+            if not (equal and launched > 0):
+                failures.append(f"make_conv_pair(pool={pool}, gram={gram}): {rows[-1]}")
+    emit({"phase": "surface", "part": "make_conv_pair", "shape": list(x.shape), "cases": rows})
+    return failures
+
+
+def _surface_weight_cotangents(torch, params):
+    """Part 4: ``None`` weight gradients through every kernel wrapper on the
+    card, the input gradient bit-equal to a run without ``requires_grad``."""
+    from style_transfer_tpu_torch.ops.kernels import block1 as B1
+    from style_transfer_tpu_torch.ops.kernels import conv_gram as CG
+    from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
+    from style_transfer_tpu_torch.ops.kernels import conv_single as CS
+    from style_transfer_tpu_torch.parallel import mesh as M
+
+    mesh = M.make_mesh(devices=["cuda:0"] * 2)
+    b1, b2, c3, c5 = ("conv1_1", "conv1_2"), ("conv2_1", "conv2_2"), ("conv3_1",), ("conv5_1",)
+    cases = {  # name -> (wrapper, input (H, W, C), layers, sharded)
+        "block1_packed": (B1.block1_packed, (64, 64, 3), b1, False),
+        "block1_full": (B1.block1_full, (64, 64, 3), b1, False),
+        "block1_tail": (B1.block1_tail, (64, 64, 64), ("conv1_2",), False),
+        "conv_pair": (CP.make_conv_pair(pool=True, gram=True), (64, 64, 64), b2, False),
+        "conv_single": (CS.make_conv_single(pool=True, gram=True), (64, 64, 128), c3, False),
+        "conv_gram": (CG.conv_gram, (16, 16, 512), c5, False),
+        "gram_tail": (CS.gram_tail, (16, 16, 512), c5, False),
+        "make_sharded_block1": (B1.make_sharded_block1(mesh), (64, 64, 3), b1, True),
+        "make_sharded_pair": (CP.make_sharded_pair(mesh, pool=True, gram=True), (64, 64, 64),
+                              b2, True),
+        "make_sharded_single": (CS.make_sharded_single(mesh, pool=True, gram=True),
+                                (64, 64, 128), c3, True),
+        "make_sharded_conv_gram": (CG.make_sharded_conv_gram(mesh), (32, 16, 512), c5, True),
+        "make_sharded_gram_tail": (CS.make_sharded_gram_tail(mesh), (32, 16, 512), c5, True),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows, failures = {}, []
+    for name, (fn, (h, w, c), layers, sharded) in cases.items():
+        x = torch.rand(1, h, w, c, generator=gen, device="cuda").to(torch.bfloat16)
+        weights = [params[n][k].cuda() for n in layers for k in ("kernel", "bias")]
+
+        def grads(ws):
+            xr = x.clone().requires_grad_(True)
+            xin = M.scatter_rows(xr, M.row_bounds(h, mesh.size), mesh) if sharded else xr
+            out = fn(xin, *ws)
+            out = out if isinstance(out, tuple) else (out,)
+            parts = [t for o in out for t in (o if isinstance(o, list) else [o])]
+            loss = sum(t.float().square().sum() for t in parts)
+            wanted = [xr] + [t for t in ws if t.requires_grad]
+            return torch.autograd.grad(loss, wanted, allow_unused=True)
+
+        free = grads(weights)[0]
+        got, *dw = grads([t.clone().requires_grad_(True) for t in weights])
+        rows[name] = {"weight_grads_none": all(g is None for g in dw),
+                      "input_grad_bit_equal": torch.equal(got, free),
+                      "input_grad_nonzero": bool(free.abs().max() > 0)}
+        if not all(rows[name].values()):
+            failures.append(f"weight cotangents {name}: {rows[name]}")
+    emit({"phase": "surface", "part": "weight_cotangents", "cases": rows})
+    return failures
+
+
+def _surface_vgg_resize(torch, params):
+    """Part 5: the ``VGG`` module on the card against the CPU (fp32), and
+    every resize method on the card against the CPU."""
+    import numpy as np
+
+    from style_transfer_tpu_torch import VGG
+    from style_transfer_tpu_torch.utils import imgio
+
+    layers = ["conv1_1", "conv2_1", "conv3_1", "conv4_1", "conv4_2", "conv5_1"]
+    x = torch.from_numpy(np.random.RandomState(5).randn(1, 256, 256, 3).astype(np.float32))
+    model = VGG(params)
+    cpu = model(x, layers)
+    card = model.to("cuda")(x.cuda(), layers)
+    vgg_rel = {k: _rel(card[k].cpu(), cpu[k]) for k in layers}
+    img = torch.from_numpy(np.random.RandomState(6).rand(1, 300, 400, 3).astype(np.float32))
+    resize = {}
+    for method in imgio.METHODS:
+        for size in ((512, 683), (128, 171)):
+            a = imgio.resize_image(img.cuda(), size, method=method).cpu()
+            b = imgio.resize_image(img, size, method=method)
+            resize[f"{method}@{size[0]}x{size[1]}"] = _max_abs(a, b)
+    emit({"phase": "surface", "part": "vgg_and_resize", "vgg_rel_card_vs_cpu": vgg_rel,
+          "vgg_tol": TOL_VGG_DEVICES, "resize_max_abs_card_vs_cpu": resize,
+          "resize_tol": TOL_RESIZE_DEVICES})
+    failures = [f"VGG {k}: {v}" for k, v in vgg_rel.items() if not v <= TOL_VGG_DEVICES]
+    failures += [f"resize {k}: {v}" for k, v in resize.items() if not v <= TOL_RESIZE_DEVICES]
+    return failures
+
+
+def _surface_example(torch, npz, tmp, steps):
+    """Part 6: ``python -m style_transfer_tpu_torch.examples.stylize``."""
+    import numpy as np
+
+    from style_transfer_tpu_torch.utils import imgio
+
+    r = np.random.RandomState(19)
+    content, style, out = f"{tmp}/ex_content.png", f"{tmp}/ex_style.png", f"{tmp}/ex_out.png"
+    imgio.save_image(r.rand(512, 384, 3).astype(np.float32), content)
+    imgio.save_image(r.rand(256, 256, 3).astype(np.float32), style)
+    repo, env = _port_env()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "style_transfer_tpu_torch.examples.stylize",
+                           content, style, "--weights", npz, "--size", "512", "--iterations",
+                           str(steps), "-o", out], cwd=repo, env=env, capture_output=True,
+                          text=True, timeout=600)
+    img = imgio.load_image(out) if proc.returncode == 0 else None
+    ok = (img is not None and img.shape == (512, 384, 3) and bool(np.isfinite(img).all())
+          and 0.0 <= float(img.min()) and float(img.max()) <= 1.0)
+    emit({"phase": "surface", "part": "example", "rc": proc.returncode,
+          "seconds": time.perf_counter() - t0,
+          "out_shape": None if img is None else list(img.shape),
+          "stdout_tail": proc.stdout.splitlines()[-3:]})
+    return [] if ok else [f"example: rc {proc.returncode}, {proc.stderr[-2000:]}"]
+
+
+def surface_check(torch, params, steps):
+    """Phase 16: what the port adds beside the optimize loop, on the card.
+
+    1. converter to CLI: a torchvision-layout VGG-19 ``state_dict`` of the
+       port's fixture (HWIO -> OIHW) through ``python -m
+       style_transfer_tpu_torch.scripts.convert_weights`` in a subprocess
+       that must load no JAX module; ``load_npz`` must give the fixture's
+       arrays bit for bit; ``cli.main`` at 512 px (256 -> 512, ``steps`` a
+       scale) with ``--weights`` on it and with ``--random-weights`` must
+       write the same PNG bits, each run launching ``block1_packed``,
+       ``conv_pair``, ``conv_gram`` and ``tv_loss``; the ``caffe-npz``
+       route loaded on the card with finite features;
+    2. ``scripts/validate_kernels.py`` over all twelve blocks at 1024, 2048
+       and 4096, and at configuration 5's 1920x1080: every record ``ok`` on
+       the ``cuda`` route;
+    3. ``make_conv_pair`` for each ``(pool, gram)`` bit-equal to
+       ``conv_pair``, with launches;
+    4. weights with ``requires_grad`` get ``None`` through every kernel
+       wrapper and its mesh form, the input gradient bit-equal to a run
+       without it;
+    5. the ``VGG`` module on the card against the CPU (fp32, TF32 off) and
+       every resize method on the card against the CPU;
+    6. the library walkthrough ``python -m
+       style_transfer_tpu_torch.examples.stylize`` with the converted
+       weights at 512 px.
+
+    Any failure raises, after every part has run."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="surface_phase_")
+    failures = []
+    try:
+        t0 = time.perf_counter()
+        npz = _surface_converter(torch, params, tmp, steps)
+        seconds = {"converter_to_cli": time.perf_counter() - t0}
+        for part, fn in (("validate_kernels", lambda: _surface_validator(torch)),
+                         ("make_conv_pair", lambda: _surface_conv_pair(torch, params)),
+                         ("weight_cotangents", lambda: _surface_weight_cotangents(torch, params)),
+                         ("vgg_and_resize", lambda: _surface_vgg_resize(torch, params)),
+                         ("example", lambda: _surface_example(torch, npz, tmp, steps))):
+            t0 = time.perf_counter()
+            failures += fn()
+            seconds[part] = time.perf_counter() - t0
+        emit({"phase": "surface", "part": "seconds", "seconds": seconds})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"surface: {failures}")
+
+
 PHASES = ("kernel", "segment_forms", "parity", "stylize", "large", "fused_block1", "objective",
-          "profile", "ladder", "lbfgs", "cli", "pipeline", "mesh")
+          "profile", "ladder", "lbfgs", "cli", "pipeline", "mesh", "surface")
 
 
 def main(argv=None) -> int:
@@ -3298,6 +3679,8 @@ def main(argv=None) -> int:
     mesh_forms = {}
     if "mesh" in phases:
         mesh_forms = timed("mesh", lambda: mesh_check(torch, params, mean, std, args.steps))
+    if "surface" in phases:
+        timed("surface", lambda: surface_check(torch, params, args.steps))
     emit({"phase": "memory", "peak_mib": {"objective": peak.get("objective")},
           "seconds_by_phase": seconds_by_phase})
 

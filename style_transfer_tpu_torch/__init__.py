@@ -12,6 +12,6 @@ wrapper runs its plain PyTorch version. This package never imports JAX.
 __version__ = "0.1.0"
 
 from style_transfer_tpu_torch.api import StyleTransfer, StylizeConfig  # noqa: F401
-from style_transfer_tpu_torch.models.vgg import LAYER_NAMES  # noqa: F401
+from style_transfer_tpu_torch.models.vgg import VGG, VGG19, LAYER_NAMES  # noqa: F401
 
-__all__ = ["StyleTransfer", "StylizeConfig", "LAYER_NAMES", "__version__"]
+__all__ = ["StyleTransfer", "StylizeConfig", "VGG", "VGG19", "LAYER_NAMES", "__version__"]

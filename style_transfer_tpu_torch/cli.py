@@ -137,7 +137,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     g = p.add_argument_group("model weights")
     g.add_argument("--weights", default=None,
-                   help="VGG-19 .npz weights (see scripts/convert_weights.py)")
+                   help="VGG-19 .npz weights (convert with python -m "
+                        "style_transfer_tpu_torch.scripts.convert_weights)")
     g.add_argument("--random-weights", action="store_true",
                    help="use the deterministic random fixture (tests/benches): this "
                         "package's numpy-drawn weights, not the JAX package's "
@@ -287,8 +288,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         params, mean, std = random_fixture(0, arch=args.arch)
     else:
         print(
-            "error: no VGG-19 weights. Pass --weights vgg19.npz (convert with "
-            "scripts/convert_weights.py) or --random-weights for a fixture run.",
+            "error: no VGG-19 weights. Pass --weights vgg19.npz (convert with python -m "
+            "style_transfer_tpu_torch.scripts.convert_weights) or --random-weights for a "
+            "fixture run.",
             file=sys.stderr,
         )
         return 2

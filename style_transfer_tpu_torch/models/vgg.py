@@ -2,7 +2,8 @@
 
 Counterpart of ``style_transfer_tpu/models/vgg.py`` (``blocks``,
 ``conv_names``, ``layer_channels``, ``init_params``, ``infer_arch``,
-``_conv``, ``_pool``, ``extract_features``). The layouts stay the JAX
+``_conv``, ``_pool``, ``extract_features``, the ``VGG`` class and the
+VGG-19 constants). The layouts stay the JAX
 package's: NHWC activations, HWIO kernels, and params as a plain
 ``{layer: {"kernel", "bias"}}`` dict of tensors, so the port and the
 reference compare like with like. Convolutions go through ``F.conv2d`` on a
@@ -19,8 +20,7 @@ hand-written kernels of ``ops/kernels``).
 halo row of each neighbour, each pool takes the rows of its pairs. The
 reference's ``shard_divisor`` switch (``vgg.py:143-180``), which pools by
 slicing to work around an XLA SPMD miscompile of the reshape pool's
-backward, has no counterpart: the port pools each shard itself. Left out
-too: the ``VGG`` convenience class.
+backward, has no counterpart: the port pools each shard itself.
 
 ``init_params`` draws He-normal weights from ``numpy.random.RandomState``,
 so its values differ from the JAX package's ``jax.random`` fixture; parity
@@ -80,7 +80,11 @@ def layer_channels(arch: str = DEFAULT_ARCH) -> Dict[str, int]:
     return out
 
 
+# VGG-19 module-level constants (the default family, used by most callers).
+CONV_NAMES: tuple = conv_names()
+POOL_NAMES: tuple = tuple(f"pool{b}" for b, _, _ in blocks())
 LAYER_NAMES: tuple = layer_names()
+LAYER_CHANNELS: Dict[str, int] = layer_channels()
 
 
 def conv_in_channels(name: str, arch: str = DEFAULT_ARCH) -> int:
@@ -319,6 +323,47 @@ def extract_features_sharded(
         if block_stop is not None:
             return feats
     return feats
+
+
+class VGG(torch.nn.Module):
+    """Params, pooling and compute dtype bound into a module (JAX ``VGG``,
+    ``vgg.py:288-317``). The weights are buffers, not parameters: ``.to()``
+    moves them, and they take no gradient, which is the image optimization's
+    frozen-weights contract. ``arch`` is inferred from the parameter keys.
+    ``forward(x, layers)`` is :func:`extract_features`, the plain path, as
+    the JAX class's ``__call__`` is; the kernel chain runs only inside
+    ``StyleTransfer``."""
+
+    def __init__(self, params: Mapping[str, Mapping[str, torch.Tensor]], *,
+                 pooling: str = "average", compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.arch = infer_arch(params)
+        self.pooling = pooling
+        self.compute_dtype = compute_dtype
+        for name in conv_names(self.arch):
+            for k in ("kernel", "bias"):
+                self.register_buffer(f"{name}_{k}", torch.as_tensor(params[name][k]).detach())
+
+    @property
+    def params(self) -> Params:
+        """The weights as a ``{layer: {"kernel", "bias"}}`` dict of the
+        module's buffers (wherever ``.to()`` has moved them)."""
+        return {name: {k: getattr(self, f"{name}_{k}") for k in ("kernel", "bias")}
+                for name in conv_names(self.arch)}
+
+    def forward(self, x: torch.Tensor, layers: Sequence[str]) -> Dict[str, torch.Tensor]:
+        return extract_features(self.params, x, layers, pooling=self.pooling,
+                                compute_dtype=self.compute_dtype, arch=self.arch)
+
+    @classmethod
+    def random(cls, seed: int = 0, arch: str = DEFAULT_ARCH, **kw) -> "VGG":
+        """A module on :func:`init_params`' numpy draw: its values differ from
+        the JAX ``VGG.random`` of the same seed (module docstring)."""
+        return cls(init_params(seed, arch), **kw)
+
+
+#: Backwards-compatible alias (the default family).
+VGG19 = VGG
 
 
 # Classic Gatys selections (``vgg.py:323-324``).

@@ -11,9 +11,12 @@ The cache is keyed on the tensor's ``data_ptr()``, ``_version``, shape,
 strides, dtype and device, and each entry keeps its source tensor alive, so
 the address cannot be reused by another tensor while the entry lives. An
 in-place update bumps ``_version`` and yields a new preparation. The cache
-holds at most :data:`MAX_ENTRIES` entries (least recently used out first):
-VGG-19 up to conv5_1 needs 13 taps in two forms and 13 biases; the one-pass
-block-1 kernels add conv1_1's padded (32, 64) taps and two fp32 biases.
+holds at most :data:`MAX_ENTRIES` entries per device (the least recently
+used entry of that device out first): VGG-19 up to conv5_1 needs 13 taps in
+two forms and 13 biases on each card (39); the one-pass block-1 kernels add
+conv1_1's padded (32, 64) taps and two fp32 biases. A mesh over N distinct
+cards (``parallel/mesh.py``) keeps each card's weights there, so the cache
+holds N such sets, and no card's entries evict another's.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from collections import OrderedDict
 
 import torch
 
-#: Most entries kept (least recently used out first).
+#: Most entries kept per device (least recently used out first).
 MAX_ENTRIES = 64
 
 _cache: "OrderedDict[tuple, tuple]" = OrderedDict()
@@ -74,8 +77,9 @@ def _prepared(t: torch.Tensor, form: str) -> torch.Tensor:
         out = _FORMS[form](t)
     preparations += 1
     _cache[key] = (t, out)  # the source stays alive: its address stays its own
-    while len(_cache) > MAX_ENTRIES:
-        _cache.popitem(last=False)
+    same_device = [k for k in _cache if k[-1] == key[-1]]  # oldest first
+    if len(same_device) > MAX_ENTRIES:
+        del _cache[same_device[0]]
     return out
 
 
@@ -97,6 +101,14 @@ def conv1_taps(k1: torch.Tensor) -> torch.Tensor:
 def fp32(t: torch.Tensor) -> torch.Tensor:
     """Cached :func:`as_fp32` of a bias (the block-1 kernels add it in fp32)."""
     return _prepared(t, "fp32")
+
+
+def frozen(*weights: torch.Tensor) -> list:
+    """The weights and biases detached: what a wrapper's plain version gets
+    on a CPU tensor, so that it gives them no gradient (``None``), as the
+    CUDA kernels give none. ``None`` is the PyTorch form of the reference's
+    structural zero weight cotangent (``tests/test_weight_grads.py``)."""
+    return [w.detach() for w in weights]
 
 
 def clear() -> None:

@@ -24,8 +24,11 @@ plus the conv1_1 Gram, with a VJP to the block's input. Three entry points:
 
 Contract of the first two: ``(x, k1, b1, k2, b2) -> (pool1 (1, H/2, W/2, 64),
 gram (64, 64) fp32 / (H*W))`` for the preprocessed image ``x`` (1, H, W, 3),
-H and W even; the backward writes the image cotangent only (the VGG weights
-are frozen: their gradients are ``None``). ``block1_full`` and
+H and W even; the backward differentiates w.r.t. the image only. The VGG
+weights are frozen: their gradients are ``None`` on both devices (on a CPU
+tensor the plain versions get them detached, ``_weights.frozen``), the
+PyTorch form of the reference's structural zeros
+(``tests/test_weight_grads.py``); ``block1_tail`` likewise. ``block1_full`` and
 ``block1_tail`` make one forward and one backward kernel launch per call
 (the Gram's fixed-order reduce pass and ``block1_full``'s col2im aside) and
 take bf16 on the card; on a CPU tensor every entry point runs its plain
@@ -44,8 +47,8 @@ W; tiles ``H/16 * W/16 < 2^31`` and ``3 W < 2^31``.
 
 :func:`make_sharded_block1` is ``block1_packed`` on a 1-D spatial mesh
 (JAX ``block1_packed.py:730``): the conv pair's mesh form
-(``conv_pair.make_sharded_pair``) with Cin=3, both epilogues and the
-block-1 counter. ``block1_full`` and ``block1_tail`` have no mesh form, as
+(``conv_pair.make_sharded_pair``) with Cin=3, both epilogues, :data:`HALO`
+rows and the block-1 counter. ``block1_full`` and ``block1_tail`` have no mesh form, as
 in the reference, which runs the opt-in path on one device only.
 
 Left out from the TPU kernels: the W-pair lane packing and the packed im2col
@@ -66,6 +69,11 @@ from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
 from style_transfer_tpu_torch.parallel import mesh as M
 
 C = 64
+
+#: Halo rows each way of a shard under :func:`make_sharded_block1`: the conv
+#: pair's (two 3x3 convs). The TPU's 4 (``block1_packed.py:680``) also
+#: covers its clamped edge blocks.
+HALO = CP.HALO
 
 #: Kernel launches made by :func:`block1_packed`.
 launches = LaunchCount()
@@ -91,14 +99,15 @@ def block1_tail_plain(r1, k2, b2):
 def block1_packed(x, k1, b1, k2, b2, *, gram_rows=None, hw=None):
     """Whole VGG block 1 on the generic conv-pair kernels; see the module
     docstring. ``gram_rows`` and ``hw`` are the conv pair's (a mesh
-    shard's Gram window and the global divisor)."""
+    shard's Gram window and the global divisor). Differentiates w.r.t.
+    ``x`` only: the frozen weights' gradients are ``None``."""
     n, h, w, c = x.shape
     if n != 1 or c != 3 or h % 2 or w % 2:
         raise ValueError("block1_packed expects (1, even H, even W, 3)")
     if x.device.type == "cuda":
         return CP.PairFunction.apply(x, k1, b1, k2, b2, True, True, launches, gram_rows, hw)
     if x.device.type == "cpu":
-        return block1_plain(x, k1, b1, k2, b2, gram_rows=gram_rows, hw=hw)
+        return block1_plain(x, *_weights.frozen(k1, b1, k2, b2), gram_rows=gram_rows, hw=hw)
     raise ValueError(f"block1_packed runs on CUDA or CPU tensors, got device {x.device}")
 
 
@@ -106,14 +115,14 @@ def make_sharded_block1(mesh):
     """:func:`block1_packed` on a 1-D spatial mesh (JAX
     ``make_sharded_block1``): ``f(xs, k1, b1, k2, b2) -> (pool1 shards,
     gram)`` for the preprocessed image as a list of H shards; each shard
-    runs block 1 on its rows plus ``conv_pair.HALO`` rows of each neighbour
+    runs block 1 on its rows plus :data:`HALO` rows of each neighbour
     (launches count on :data:`launches`, per shard), the Gram is summed on
     the mesh's home device."""
     def sharded_block1(xs, k1, b1, k2, b2):
         def one(x, dev, rows, hw):
             return block1_packed(x, *M.replicas(dev, k1, b1, k2, b2), gram_rows=rows, hw=hw)
 
-        return M.map_shards(one, xs, CP.HALO, pool=True, gram=True, home=mesh.home)
+        return M.map_shards(one, xs, HALO, pool=True, gram=True, home=mesh.home)
 
     return sharded_block1
 
@@ -202,25 +211,28 @@ class TailFunction(torch.autograd.Function):
 
 def block1_full(x, k1, b1, k2, b2):
     """Whole VGG block 1 in one pass from the preprocessed image; see the
-    module docstring."""
+    module docstring. Differentiates w.r.t. ``x`` only: the frozen
+    weights' gradients are ``None``."""
     n, h, w, c = x.shape
     if n != 1 or c != 3 or h % 2 or w % 2:
         raise ValueError("block1_full expects (1, even H, even W, 3)")
     if x.device.type == "cuda":
         return FullFunction.apply(x, k1, b1, k2, b2)
     if x.device.type == "cpu":
-        return block1_plain(x, k1, b1, k2, b2)
+        return block1_plain(x, *_weights.frozen(k1, b1, k2, b2))
     raise ValueError(f"block1_full runs on CUDA or CPU tensors, got device {x.device}")
 
 
 def block1_tail(r1, k2, b2):
     """conv1_2 + ReLU + average pool and the conv1_1 Gram from the stored
-    activation ``r1`` (1, H, W, 64), H and W even; see the module docstring."""
+    activation ``r1`` (1, H, W, 64), H and W even; see the module docstring.
+    Differentiates w.r.t. ``r1`` only: the frozen weights' gradients are
+    ``None``."""
     n, h, w, c = r1.shape
     if n != 1 or c != C or h % 2 or w % 2:
         raise ValueError("block1_tail expects (1, even H, even W, 64)")
     if r1.device.type == "cuda":
         return TailFunction.apply(r1, k2, b2)
     if r1.device.type == "cpu":
-        return block1_tail_plain(r1, k2, b2)
+        return block1_tail_plain(r1, *_weights.frozen(k2, b2))
     raise ValueError(f"block1_tail runs on CUDA or CPU tensors, got device {r1.device}")

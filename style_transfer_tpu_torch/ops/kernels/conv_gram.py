@@ -10,14 +10,16 @@ saved residual, as on the TPU) and the Gram of y (``csrc/gram.cu``);
 backward = ``S = (dG + dG^T) / (H*W)``, ``dpre = bf16(y > 0 ? y S : 0)``
 (``gram.cu``'s gated F S) and the transposed conv to dx. The TPU kernel
 fuses the y S product and the gate into its backward prologue; here they
-are one extra launch. On a CPU tensor it runs :func:`conv_gram_plain`.
+are one extra launch. On a CPU tensor it runs :func:`conv_gram_plain` on
+detached weights. Either way it differentiates w.r.t. the input only: the
+frozen weights' gradients are ``None``, the PyTorch form of the reference's
+structural zeros (``tests/test_weight_grads.py``).
 
 The mesh takes ``gram_rows = (lo, hi)`` and ``hw`` as the conv pair does
 (``conv_pair.py``): the Gram over rows ``[lo, hi)`` of y only, divided by
 the global H*W; the backward's gated ``y S`` is zero outside those rows.
 :func:`make_sharded_conv_gram` is the mesh form (JAX ``conv_gram.py:233``):
-each shard's rows plus one row of each neighbour (the reach of one 3x3
-conv; the TPU's 2 also covers its clamped edge blocks).
+each shard's rows plus :data:`HALO` rows of each neighbour.
 
 Left out from the TPU kernel: its row tiling, the ``vmem.gram_tail_impl``
 envelope (and the W-chunked ``gram_tail`` alternative), and the global row
@@ -30,13 +32,18 @@ import torch
 
 from style_transfer_tpu_torch.models import vgg
 from style_transfer_tpu_torch.ops import losses
-from style_transfer_tpu_torch.ops.kernels import _launch
+from style_transfer_tpu_torch.ops.kernels import _launch, _weights
 from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
 from style_transfer_tpu_torch.ops.kernels.conv_pair import _rows
 from style_transfer_tpu_torch.parallel import mesh as M
 
 #: Kernel launches made by the conv+Gram wrapper.
 launches = LaunchCount()
+
+#: Halo rows each way of a shard under :func:`make_sharded_conv_gram`: the
+#: reach of one 3x3 conv. The TPU's 2 (``conv_gram.py:208``) also covers its
+#: clamped edge blocks.
+HALO = 1
 
 
 def conv_gram_plain(x, k, b, *, gram_rows=None, hw=None):
@@ -76,23 +83,24 @@ class ConvGramFunction(torch.autograd.Function):
 
 def conv_gram(x, k, b, *, gram_rows=None, hw=None):
     """The fused conv+Gram: CUDA kernels for a CUDA tensor,
-    :func:`conv_gram_plain` for a CPU tensor."""
+    :func:`conv_gram_plain` for a CPU tensor. Differentiates w.r.t. ``x``
+    only: the frozen weights' gradients are ``None`` on both devices."""
     if x.device.type == "cuda":
         return ConvGramFunction.apply(x, k, b, gram_rows, hw)
     if x.device.type == "cpu":
-        return conv_gram_plain(x, k, b, gram_rows=gram_rows, hw=hw)
+        return conv_gram_plain(x, *_weights.frozen(k, b), gram_rows=gram_rows, hw=hw)
     raise ValueError(f"conv_gram runs on CUDA or CPU tensors, got device {x.device}")
 
 
 def make_sharded_conv_gram(mesh):
     """:func:`conv_gram` on a 1-D spatial mesh (JAX ``make_sharded_conv_gram``):
     ``f(xs, k, b) -> gram`` on the mesh's home device for a list of H
-    shards; each shard runs the kernel on its rows plus one row of each
-    neighbour, launches counting on :data:`launches`, per shard."""
+    shards; each shard runs the kernel on its rows plus :data:`HALO` rows of
+    each neighbour, launches counting on :data:`launches`, per shard."""
     def sharded_conv_gram(xs, k, b):
         def one(x, dev, rows, hw):
             return conv_gram(x, *M.replicas(dev, k, b), gram_rows=rows, hw=hw)
 
-        return M.map_shards(one, xs, 1, pool=False, gram=True, out=False, home=mesh.home)
+        return M.map_shards(one, xs, HALO, pool=False, gram=True, out=False, home=mesh.home)
 
     return sharded_conv_gram

@@ -6,8 +6,9 @@ Counterpart of ``style_transfer_tpu/ops/pallas/conv_pair.py``
 ``(x, k1, b1, k2, b2) -> out`` or ``(out, gram)``, ``x`` (1, H, W, Cin),
 ``out`` the pooled (1, H/2, W/2, Cmid) or full (1, H, W, Cmid) second
 activation, ``gram`` the FIRST activation's (Cmid, Cmid) fp32 Gram / (H*W);
-the backward returns the input cotangent only (the VGG weights are frozen:
-their gradients are ``None``).
+the backward differentiates w.r.t. the input only. The VGG weights are
+frozen: their gradients are ``None`` on both devices, the PyTorch form of
+the reference's structural zeros (``tests/test_weight_grads.py``).
 
 On a CUDA tensor the pair runs on the hand-written kernels of
 ``csrc/conv3x3.cu`` and ``csrc/gram.cu``:
@@ -20,7 +21,8 @@ On a CUDA tensor the pair runs on the hand-written kernels of
   conv a -> dx (bf16). The saved tensors are the TPU kernel's (r1 + mask).
 
 On a CPU tensor it runs :func:`conv_pair_plain` (``F.conv2d``, the port's
-pool and Gram) under autograd. Any other device raises.
+pool and Gram) under autograd, on detached weights (``_weights.frozen``).
+Any other device raises.
 
 Two optional arguments serve the mesh: ``gram_rows = (lo, hi)`` takes the
 Gram over rows ``[lo, hi)`` of the first activation only (a shard's own
@@ -46,7 +48,7 @@ import torch
 
 from style_transfer_tpu_torch.models import vgg
 from style_transfer_tpu_torch.ops import losses
-from style_transfer_tpu_torch.ops.kernels import _launch
+from style_transfer_tpu_torch.ops.kernels import _launch, _weights
 from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
 from style_transfer_tpu_torch.parallel import mesh as M
 
@@ -123,12 +125,13 @@ class PairFunction(torch.autograd.Function):
 
 def conv_pair(x, k1, b1, k2, b2, *, pool: bool, gram: bool, gram_rows=None, hw=None):
     """The fused pair: CUDA kernels for a CUDA tensor, :func:`conv_pair_plain`
-    for a CPU tensor."""
+    for a CPU tensor. Differentiates w.r.t. ``x`` only: the frozen weights'
+    gradients are ``None`` on both devices."""
     if x.device.type == "cuda":
         return PairFunction.apply(x, k1, b1, k2, b2, pool, gram, launches, gram_rows, hw)
     if x.device.type == "cpu":
-        return conv_pair_plain(x, k1, b1, k2, b2, pool=pool, gram=gram, gram_rows=gram_rows,
-                               hw=hw)
+        return conv_pair_plain(x, *_weights.frozen(k1, b1, k2, b2), pool=pool, gram=gram,
+                               gram_rows=gram_rows, hw=hw)
     raise ValueError(f"conv_pair runs on CUDA or CPU tensors, got device {x.device}")
 
 
@@ -140,6 +143,17 @@ def pair_gram(x, k1, b1, k2, b2):
 def pair_pool(x, k1, b1, k2, b2):
     """Block-3/4 tail pair: two convs and the 2x2 average pool."""
     return conv_pair(x, k1, b1, k2, b2, pool=True, gram=False)
+
+
+def make_conv_pair(*, pool: bool, gram: bool):
+    """``f(x, k1, b1, k2, b2)``: :func:`conv_pair` with the given epilogues
+    (JAX ``make_conv_pair``, ``conv_pair.py:395``). It differentiates w.r.t.
+    ``x`` only; the frozen weights' gradients are ``None``."""
+
+    def pair(x, k1, b1, k2, b2):
+        return conv_pair(x, k1, b1, k2, b2, pool=pool, gram=gram)
+
+    return pair
 
 
 def make_sharded_pair(mesh, *, pool: bool, gram: bool):

@@ -9,8 +9,9 @@ Counterpart of ``style_transfer_tpu/ops/pallas/conv_single.py``
 ``out`` the pooled (1, H/2, W/2, Cout) or full (1, H, W, Cout) activation,
 ``gram`` the (Cout, Cout) fp32 Gram of the pre-pool activation / (H*W),
 over the local column window ``gram_cols`` when one is given; the backward
-returns the input cotangent only (the VGG weights are frozen: their
-gradients are ``None``).
+differentiates w.r.t. the input only. The VGG weights are frozen: their
+gradients are ``None`` on both devices, the PyTorch form of the reference's
+structural zeros (``tests/test_weight_grads.py``).
 
 On a CUDA tensor the single runs on the hand-written kernels of
 ``csrc/conv3x3.cu`` and ``csrc/gram.cu``:
@@ -24,8 +25,8 @@ On a CUDA tensor the single runs on the hand-written kernels of
   stages ``bf16(y > 0 ? [unpool](dy) + y S : 0)`` — the order and the one
   rounding point of the TPU kernel (``conv_single.py:177-197``).
 
-On a CPU tensor it runs :func:`conv_single_plain` under autograd. Any other
-device raises.
+On a CPU tensor it runs :func:`conv_single_plain` under autograd, on
+detached weights (``_weights.frozen``). Any other device raises.
 
 The W-sliced wrappers keep the reference's stitching in torch glue —
 :data:`WIDE_HALO` halo columns per side, each slice's Gram over its owned
@@ -48,8 +49,9 @@ global H*W, and the backward's ``y S`` zero outside them.
 :func:`make_sharded_single` and :func:`make_sharded_gram_tail` are the
 mesh forms (JAX ``conv_single.py:635``, ``:428``), and
 ``make_pair_of_singles(mesh=...)`` chains two sharded singles, as the
-reference does. Each shard runs the single on its rows plus one halo row of
-each neighbour (the reach of a 3x3 conv), two where the pool pairs rows.
+reference does. Each shard runs the single on its rows plus :data:`HALO`
+rows of each neighbour (the reach of a 3x3 conv), :data:`POOL_HALO` where
+the pool pairs rows.
 
 Left out from the TPU kernel: its row tiling and W-chunking (``_tile_for``,
 ``_w_chunks``), the row padding, and the global row offset ``off`` with its
@@ -64,7 +66,7 @@ import torch.nn.functional as F
 
 from style_transfer_tpu_torch.models import vgg
 from style_transfer_tpu_torch.ops import losses
-from style_transfer_tpu_torch.ops.kernels import _launch
+from style_transfer_tpu_torch.ops.kernels import _launch, _weights
 from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
 from style_transfer_tpu_torch.ops.kernels.conv_pair import _rows
 from style_transfer_tpu_torch.parallel import mesh as M
@@ -76,6 +78,12 @@ gram_tail_launches = LaunchCount()
 
 #: Halo columns each side of a W slice (``vmem.WIDE_HALO``).
 WIDE_HALO = 8
+
+#: Halo rows each way of a shard under the mesh forms: the reach of one 3x3
+#: conv, and :data:`POOL_HALO` where the pool pairs rows (an even count).
+#: The TPU's 2 (``conv_single.py:574``) also covers its clamped edge blocks.
+HALO = 1
+POOL_HALO = 2
 
 
 def conv_single_plain(x, k, b, *, pool: bool, gram: bool, gram_cols=None, gram_rows=None,
@@ -145,15 +153,17 @@ def _single(x, k, b, *, pool: bool, gram: bool, gram_cols=None, count: LaunchCou
     if x.device.type == "cuda":
         return SingleFunction.apply(x, k, b, pool, gram, gram_cols, count, gram_rows, hw)
     if x.device.type == "cpu":
-        return conv_single_plain(x, k, b, pool=pool, gram=gram, gram_cols=gram_cols,
-                                 gram_rows=gram_rows, hw=hw)
+        return conv_single_plain(x, *_weights.frozen(k, b), pool=pool, gram=gram,
+                                 gram_cols=gram_cols, gram_rows=gram_rows, hw=hw)
     raise ValueError(f"conv_single runs on CUDA or CPU tensors, got device {x.device}")
 
 
 def make_conv_single(*, pool: bool, gram: bool, gram_cols=None):
     """``f(x, k, b)``: the single with the given epilogues (module
     docstring); ``gram_cols = (lo, hi)`` restricts the Gram to local
-    columns ``[lo, hi)``, still normalized by the local H*W."""
+    columns ``[lo, hi)``, still normalized by the local H*W. It
+    differentiates w.r.t. ``x`` only: the frozen weights' gradients are
+    ``None`` on both devices."""
 
     def single(x, k, b):
         return _single(x, k, b, pool=pool, gram=gram, gram_cols=gram_cols, count=launches)
@@ -206,14 +216,16 @@ def make_sharded_single(mesh, *, pool: bool, gram: bool):
     """:func:`make_conv_single` on a 1-D spatial mesh (JAX
     ``make_sharded_single``): ``f(xs, k, b)`` on a list of H shards returns
     the output shards (and the Gram, summed on the mesh's home device). Each
-    shard runs the single on its rows plus one row of each neighbour, two
-    when pooling; launches count on :data:`launches`, per shard."""
+    shard runs the single on its rows plus :data:`HALO` rows of each
+    neighbour, :data:`POOL_HALO` when pooling; launches count on
+    :data:`launches`, per shard."""
     def sharded_single(xs, k, b):
         def one(x, dev, rows, hw):
             return _single(x, *M.replicas(dev, k, b), pool=pool, gram=gram, count=launches,
                            gram_rows=rows, hw=hw)
 
-        return M.map_shards(one, xs, 2 if pool else 1, pool=pool, gram=gram, home=mesh.home)
+        return M.map_shards(one, xs, POOL_HALO if pool else HALO, pool=pool, gram=gram,
+                            home=mesh.home)
 
     return sharded_single
 
@@ -221,14 +233,15 @@ def make_sharded_single(mesh, *, pool: bool, gram: bool):
 def make_sharded_gram_tail(mesh):
     """:func:`gram_tail` on a 1-D spatial mesh (JAX
     ``make_sharded_gram_tail``): ``f(xs, k, b) -> gram`` on the home device,
-    each shard's single run on its rows plus one row of each neighbour;
+    each shard's single run on its rows plus :data:`HALO` rows of each
+    neighbour;
     launches count on :data:`gram_tail_launches`, per shard."""
     def sharded_gram_tail(xs, k, b):
         def one(x, dev, rows, hw):
             return _single(x, *M.replicas(dev, k, b), pool=False, gram=True,
                            count=gram_tail_launches, gram_rows=rows, hw=hw)[1]
 
-        return M.map_shards(one, xs, 1, pool=False, gram=True, out=False, home=mesh.home)
+        return M.map_shards(one, xs, HALO, pool=False, gram=True, out=False, home=mesh.home)
 
     return sharded_gram_tail
 

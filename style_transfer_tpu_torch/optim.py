@@ -27,7 +27,7 @@ adds one host read per line-search step (``linesearch.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple, Union
+from typing import Any, Callable, Dict, List, Tuple, Union
 
 import torch
 
@@ -39,6 +39,8 @@ from style_transfer_tpu_torch.linesearch import (
 )
 
 ObjectiveFn = Callable[[torch.Tensor], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+# step :: (image, opt_state) -> (image, opt_state, aux-losses dict)
+StepFn = Callable[[torch.Tensor, Any], Tuple[torch.Tensor, Any, Dict[str, torch.Tensor]]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,7 +261,7 @@ class LBFGS:
         return updates, LBFGSState(lbfgs_state, ls_state)
 
 
-def make_step_fn(objective: ObjectiveFn, spec: OptimizerSpec):
+def make_step_fn(objective: ObjectiveFn, spec: OptimizerSpec) -> Tuple[StepFn, Any]:
     """``step(image, state) -> (image, state, aux)``: value and gradient of
     ``objective`` by autograd, then one optimizer update. For L-BFGS the
     update's line search evaluates the objective's value and gradient at
@@ -293,7 +295,7 @@ def make_step_fn(objective: ObjectiveFn, spec: OptimizerSpec):
     return step, optimizer
 
 
-def make_chunk_fn(step, chunk_size: int):
+def make_chunk_fn(step: StepFn, chunk_size: int):
     """``chunk_size`` steps in a loop; per-step loss terms stacked on the
     device (``{term: (chunk_size,)}``) for one host read per chunk."""
 

@@ -4,12 +4,15 @@ Counterpart of ``style_transfer_tpu/utils/imgio.py``: PIL only at the edges
 (decode/encode), a float32 RGB-in-[0,1] NHWC pipeline in between, and the
 between-scale resize on the device.
 
-``resize_image`` reproduces ``jax.image.resize(..., "lanczos3")`` followed by
-a clip to [0, 1]: torch has no Lanczos resize, so the separable
-scale-and-translate weight matrices of ``jax/_src/image/scale.py`` (Lanczos-3
-kernel, widened by the scale factor on downsample — JAX's antialiasing — and
-renormalized per output sample) are built here and applied one axis at a
-time. Axes whose size does not change are left alone, as JAX does.
+``resize_image`` reproduces ``jax.image.resize(..., method)`` followed by a
+clip to [0, 1], for every method ``jax.image.resize`` accepts (:data:`METHODS`;
+the stylize loop uses the default, Lanczos-3): torch has no Lanczos resize,
+and its bilinear and bicubic ones neither antialias as JAX does nor use its
+Keys kernel, so the separable scale-and-translate weight matrices of
+``jax/_src/image/scale.py`` (the method's kernel, widened by the scale factor
+on downsample — JAX's antialiasing — and renormalized per output sample)
+are built here and applied one axis at a time. ``nearest`` takes JAX's
+index rule. Axes whose size does not change are left alone, as JAX does.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ def load_image(path: str, dtype=np.float32) -> np.ndarray:
     """Decode an image file to RGB (H, W, 3): float in [0, 1], or uint8 with
     ``dtype=np.uint8`` (:func:`to_nhwc` converts it on the device)."""
     with Image.open(path) as im:
-        arr = np.asarray(im.convert("RGB"), dtype=np.uint8)
+        arr = np.array(im.convert("RGB"), dtype=np.uint8)  # writable: torch.from_numpy takes it
     if dtype == np.uint8:
         return arr
     return np.asarray(arr, dtype) / dtype(255.0)
@@ -114,24 +117,45 @@ def deprocess(x: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Te
     return x * _constant(std, x, "std") + _constant(mean, x, "mean")
 
 
-def _lanczos3(x: torch.Tensor) -> torch.Tensor:
-    radius = 3.0
-    y = radius * torch.sin(math.pi * x) * torch.sin(math.pi * x / radius)
-    out = torch.where(
-        x > 1e-3, y / torch.where(x != 0, math.pi ** 2 * x * x, torch.ones_like(x)),
-        torch.ones_like(x),
-    )
-    return torch.where(x > radius, torch.zeros_like(x), out)
+def _lanczos(radius: float):
+    def kernel(x: torch.Tensor) -> torch.Tensor:
+        y = radius * torch.sin(math.pi * x) * torch.sin(math.pi * x / radius)
+        out = torch.where(
+            x > 1e-3, y / torch.where(x != 0, math.pi ** 2 * x * x, torch.ones_like(x)),
+            torch.ones_like(x),
+        )
+        return torch.where(x > radius, torch.zeros_like(x), out)
+
+    return kernel
 
 
-def _weight_mat(in_size: int, out_size: int, device) -> torch.Tensor:
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel, a = -0.5 (``_fill_keys_cubic_kernel``)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+_KERNELS = {"linear": _triangle, "cubic": _keys_cubic, "lanczos3": _lanczos(3.0),
+            "lanczos5": _lanczos(5.0)}
+_ALIASES = {"bilinear": "linear", "trilinear": "linear", "triangle": "linear",
+            "bicubic": "cubic", "tricubic": "cubic"}
+#: Every ``method`` of :func:`resize_image`: ``jax.image.resize``'s names.
+METHODS = ("nearest", *_KERNELS, *_ALIASES)
+
+
+def _weight_mat(in_size: int, out_size: int, device, kernel=_KERNELS["lanczos3"]) -> torch.Tensor:
     """(in, out) resampling weights of ``jax.image.scale_and_translate``
-    (``compute_weight_mat``) for a pure scale, Lanczos-3, antialiased."""
+    (``compute_weight_mat``) for a pure scale, antialiased."""
     inv_scale = 1.0 / (out_size / in_size)
     kernel_scale = max(inv_scale, 1.0)
     sample_f = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
     src = torch.arange(in_size, dtype=torch.float32, device=device)
-    w = _lanczos3((sample_f[None, :] - src[:, None]).abs() / kernel_scale)
+    w = kernel((sample_f[None, :] - src[:, None]).abs() / kernel_scale)
     total = w.sum(dim=0, keepdim=True)
     eps = 1000.0 * float(np.finfo(np.float32).eps)
     w = torch.where(
@@ -143,16 +167,34 @@ def _weight_mat(in_size: int, out_size: int, device) -> torch.Tensor:
     return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
-def resize_image(image: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Lanczos-3 resize of an NHWC float image to (H, W) = ``size``, clipped
-    to [0, 1] (lanczos overshoots near edges; images live in [0, 1])."""
+def _nearest(in_size: int, out_size: int, device) -> torch.Tensor:
+    """The source index of each output sample (``_resize_nearest``: the
+    floor of the sample's centre, computed in float32)."""
+    pos = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * in_size / out_size
+    return pos.floor().to(torch.long)
+
+
+def resize_image(image: torch.Tensor, size: Tuple[int, int],
+                 method: str = "lanczos3") -> torch.Tensor:
+    """Resize an NHWC float image to (H, W) = ``size`` by ``method`` (one of
+    :data:`METHODS`, as ``jax.image.resize`` names them), clipped to [0, 1]
+    (lanczos and cubic overshoot near edges; images live in [0, 1])."""
+    if method not in METHODS:
+        raise ValueError(f"unknown resize method {method!r}; choose from {METHODS}")
     _, h_in, w_in, _ = image.shape
     h, w = size
     out = image.to(torch.float32)
+    if method == "nearest":
+        if h != h_in:
+            out = out.index_select(1, _nearest(h_in, h, image.device))
+        if w != w_in:
+            out = out.index_select(2, _nearest(w_in, w, image.device))
+        return out.clamp(0.0, 1.0)
+    kernel = _KERNELS[_ALIASES.get(method, method)]
     if h != h_in:
-        out = torch.einsum("nhwc,hk->nkwc", out, _weight_mat(h_in, h, image.device))
+        out = torch.einsum("nhwc,hk->nkwc", out, _weight_mat(h_in, h, image.device, kernel))
     if w != w_in:
-        out = torch.einsum("nhwc,wk->nhkc", out, _weight_mat(w_in, w, image.device))
+        out = torch.einsum("nhwc,wk->nhkc", out, _weight_mat(w_in, w, image.device, kernel))
     return out.clamp(0.0, 1.0)
 
 

@@ -99,6 +99,28 @@ def test_weight_cache_is_bounded_and_keeps_its_sources_alive():
     assert not _weights._cache
 
 
+def test_weight_cache_is_bounded_per_device():
+    """Each device keeps its own MAX_ENTRIES: one card's preparations (39 for
+    VGG-19 up to conv5_1) are never evicted by another's, however many a
+    mesh over distinct devices makes. Two device keys here: the CPU and
+    ``meta`` (shapes differ, since a meta tensor has no address)."""
+    _weights.clear()
+    before = _weights.preparations
+    meta = [torch.empty((i + 1,), device="meta") for i in range(_weights.MAX_ENTRIES)]
+    for t in meta:
+        _launch.taps(t)
+    for i in range(_weights.MAX_ENTRIES + 10):
+        _launch.taps(torch.full((4,), float(i)))
+    devices = [key[-1] for key in _weights._cache]
+    assert devices.count("meta") == devices.count("cpu") == _weights.MAX_ENTRIES
+    assert _weights.preparations == before + 2 * _weights.MAX_ENTRIES + 10
+    first = _launch.taps(meta[0])  # the CPU's evictions left the meta entries alone
+    assert _weights.preparations == before + 2 * _weights.MAX_ENTRIES + 10
+    assert first.dtype == torch.bfloat16 and first.device.type == "meta"
+    _weights.clear()
+    assert not _weights._cache
+
+
 @pytest.mark.parametrize("tile", sorted(_launch.CONV_TILES))
 def test_tile_shared_memory_fits_two_blocks_on_an_sm(tile):
     smem = _launch.conv_tile_smem(tile)

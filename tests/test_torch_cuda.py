@@ -466,3 +466,80 @@ def test_cuda_mesh_of_two_shards_matches_unsharded(cuda_device):
     cos = float((g2.flatten() @ g1.flatten()) / (g1.norm() * g2.norm()))
     assert cos >= T.TOL_MESH_COS
     assert all(a > 0 for a in n1) and n2 == [2 * a for a in n1]
+
+
+# the wrappers whose CUDA Function returns None for the weights: (wrapper,
+# input (H, W, C), conv widths)
+WEIGHT_WRAPPERS = {
+    "block1_packed": (B1.block1_packed, (16, 16, 3), [(3, 64), (64, 64)]),
+    "block1_full": (B1.block1_full, (16, 16, 3), [(3, 64), (64, 64)]),
+    "block1_tail": (B1.block1_tail, (16, 16, 64), [(64, 64)]),
+    "conv_pair": (CP.make_conv_pair(pool=True, gram=True), (16, 16, 64), [(64, 64), (64, 64)]),
+    "conv_gram": (CG.conv_gram, (16, 16, 64), [(64, 64)]),
+    "single": (CS.make_conv_single(pool=True, gram=True), (16, 16, 64), [(64, 64)]),
+    "gram_tail": (CS.gram_tail, (16, 16, 64), [(64, 64)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WEIGHT_WRAPPERS))
+def test_cuda_weight_cotangents_are_none(name, cuda_device):
+    """Weights with ``requires_grad`` get ``None`` through the CUDA kernels,
+    as on the CPU (``tests/test_torch_weight_grads.py``), and the input
+    gradient has the bits of a run whose weights take no gradient."""
+    fn, (h, w, c), widths = WEIGHT_WRAPPERS[name]
+    rng = np.random.RandomState(0)
+    weights = [torch.from_numpy(a).to(cuda_device) for cin, cout in widths
+               for a in _conv_weights(rng, cin, cout)]
+    x = torch.from_numpy(rng.rand(1, h, w, c).astype(np.float32)).to(cuda_device, torch.bfloat16)
+
+    def grads(ws):
+        xr = x.clone().requires_grad_(True)
+        out = fn(xr, *ws)
+        out = out if isinstance(out, tuple) else (out,)
+        loss = sum(o.float().square().sum() for o in out)
+        wanted = [xr] + [t for t in ws if t.requires_grad]
+        return torch.autograd.grad(loss, wanted, allow_unused=True)
+
+    free = grads(weights)[0]
+    got, *dw = grads([t.clone().requires_grad_(True) for t in weights])
+    assert all(g is None for g in dw)
+    assert torch.equal(got, free)
+
+
+@pytest.mark.cuda
+def test_cuda_weight_cache_is_bounded_per_device(cuda_device):
+    """CPU preparations never evict the card's (``_weights.MAX_ENTRIES`` per
+    device)."""
+    from style_transfer_tpu_torch.ops.kernels import _launch, _weights
+
+    _weights.clear()
+    card = [torch.full((4,), float(i), device=cuda_device) for i in range(_weights.MAX_ENTRIES)]
+    for t in card:
+        _launch.taps(t)
+    made = _weights.preparations
+    for i in range(_weights.MAX_ENTRIES + 10):
+        _launch.taps(torch.full((4,), float(i)))
+    assert all(_launch.taps(t) is not None for t in card)
+    assert _weights.preparations == made + _weights.MAX_ENTRIES + 10
+    devices = [key[-1] for key in _weights._cache]
+    assert len(devices) - devices.count("cpu") == devices.count("cpu") == _weights.MAX_ENTRIES
+    _weights.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [False, True])
+@pytest.mark.parametrize("gram", [False, True])
+def test_cuda_make_conv_pair_is_conv_pair(pool, gram, cuda_device):
+    """``make_conv_pair`` launches the pair's kernels, with the bits of
+    ``conv_pair``."""
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.rand(1, 16, 24, 64).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    ws = [torch.from_numpy(a).to(cuda_device) for cin, cout in ((64, 128), (128, 128))
+          for a in _conv_weights(rng, cin, cout)]
+    before = CP.launches.n
+    got = CP.make_conv_pair(pool=pool, gram=gram)(x, *ws)
+    assert CP.launches.n > before
+    want = CP.conv_pair(x, *ws, pool=pool, gram=gram)
+    got, want = (got, want) if gram else ((got,), (want,))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

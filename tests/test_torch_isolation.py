@@ -45,6 +45,11 @@ MODULES = [
     "style_transfer_tpu_torch.parallel",
     "style_transfer_tpu_torch.parallel.dryrun",
     "style_transfer_tpu_torch.parallel.mesh",
+    "style_transfer_tpu_torch.scripts",
+    "style_transfer_tpu_torch.scripts.convert_weights",
+    "style_transfer_tpu_torch.scripts.validate_kernels",
+    "style_transfer_tpu_torch.examples",
+    "style_transfer_tpu_torch.examples.stylize",
     "style_transfer_tpu_torch.utils.ckpt",
     "style_transfer_tpu_torch.utils.imgio",
     "style_transfer_tpu_torch.utils.progress",
