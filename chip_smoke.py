@@ -168,11 +168,24 @@ Phases, one JSON object per line on stdout:
    gradient unchanged; the ``VGG`` module and every resize method on the
    card against the CPU; ``python -m style_transfer_tpu_torch.examples.
    stylize`` on the converted weights.
+17. bench — the perf harness and the step entry: ``python -m
+   style_transfer_tpu_torch.bench --quick`` and ``--size 1024 --iterations
+   20 20 20 --skip-rates --skip-4k`` in subprocesses (exit 0, every stdout
+   line JSON, the last with every key of its stages, no JAX module imported
+   by ``-X importtime``'s list; the 512 px rate, its MFU and busy share in
+   range); ``bench.main(["--quick"])`` in this process with the chain's
+   four kernels launched, and the 2048 px ladder with ``conv_single``
+   launched; ``--budget-s 0.5`` cut with exit code 3 and a ``"cut"``
+   record; three steps of ``entry()`` (``pallas_gram`` launched, finite
+   losses) against ``entry.build_step`` on the CPU in fp32 on the same
+   images (the first loss within ``TOL_TERMS``, the next two within
+   ``TOL_CURVE``).
 
 Each stylize phase, each arm of the objective phase and the lbfgs phase's
 configuration-4 run, each ``cli.main`` run of the cli phase and each run of
 the pipeline phase's bit-equality and gap parts, each objective evaluation
-of the mesh phase and each ``cli.main`` run of the surface phase set every
+of the mesh phase, each ``cli.main`` run of the surface phase and each
+in-process run of the bench phase set every
 launch count to 0 just before they run and read them all just after. Then a
 ``{"kernels": [...]}`` summary line (eleven kernels, each with the launches
 of the phase whose path runs it, forward and backward kernels alike, its
@@ -301,14 +314,20 @@ def _wall_ms(torch, fn, reps: int, warmup: int = 3):
     return times
 
 
-def _device_profile(torch, fn, reps: int = 5):
+def _device_profile(torch, fn, reps: int = 5, whole: bool = False):
     """``(ms, launches, names)`` per call of ``fn``: the summed durations of
     the kernels (and copies) the profiler saw on the card, without host
-    launch gaps, how many there were, and their names."""
+    launch gaps, how many there were, and their names. A trace now and then
+    comes back without device events, or short of one (9 of a loss's 10
+    launches in five calls, once): up to three traces are taken until one
+    has device events and, with ``whole`` (where the count of launches per
+    call is checked), a whole number of them per call; else the last trace
+    with device events is returned."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    for _ in range(3):  # a trace now and then comes back without device events
+    last = None
+    for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -317,8 +336,12 @@ def _device_profile(torch, fn, reps: int = 5):
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         us = sum(e.time_range.elapsed_us() for e in events)
         if us > 0:
-            return us / reps / 1e3, len(events) / reps, sorted({e.name for e in events})
-    raise RuntimeError("the profiler recorded no device time on the card in three traces")
+            last = us / reps / 1e3, len(events) / reps, sorted({e.name for e in events})
+            if not whole or len(events) % reps == 0:
+                return last
+    if last is None:
+        raise RuntimeError("the profiler recorded no device time on the card in three traces")
+    return last
 
 
 def _device_ms(torch, fn, reps: int = 5) -> float:
@@ -917,7 +940,7 @@ def kernel_checks(torch, params, only=()):
                 return out, torch.autograd.grad(out, xr, grad_outputs=cts[0])[0]
 
             first, second = call(), call()
-            ms, launches_per_call, names = _device_profile(torch, call)
+            ms, launches_per_call, names = _device_profile(torch, call, whole=True)
             two_pass = passes * _nbytes(x_dt)
             loss_row = {
                 "launches_per_call": launches_per_call, "device_kernels": names,
@@ -3545,8 +3568,184 @@ def surface_check(torch, params, steps):
         raise AssertionError(f"surface: {failures}")
 
 
+BENCH_RUNS = (["--quick"],
+              ["--size", "1024", "--iterations", "20", "20", "20", "--skip-rates", "--skip-4k"])
+BENCH_CHAIN = ("block1_packed", "conv_pair", "conv_gram", "tv_loss")
+#: Modules the port's bench must not import (the JAX stack, the JAX package,
+#: the reference's bench.py and __graft_entry__.py).
+FOREIGN = ("jax", "jaxlib", "optax", "style_transfer_tpu", "bench", "__graft_entry__")
+ENTRY_STEPS = 3
+
+
+def _bench_subprocess(argv):
+    """``python -X importtime -m style_transfer_tpu_torch.bench argv``:
+    ``(exit code, the stdout lines parsed, the lines that did not parse, the
+    foreign top-level modules it imported, its stderr)``."""
+    repo, env = _port_env()
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                           "style_transfer_tpu_torch.bench", *argv], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=900)
+    lines, bad = [], []
+    for line in proc.stdout.splitlines():
+        try:
+            lines.append(json.loads(line))
+        except ValueError:
+            bad.append(line)
+    imported = {l.rsplit("|", 1)[-1].strip().split(".")[0] for l in proc.stderr.splitlines()
+                if l.startswith("import time:")}
+    log = "\n".join(l for l in proc.stderr.splitlines() if not l.startswith("import time:"))
+    return proc.returncode, lines, bad, sorted(imported & set(FOREIGN)), log
+
+
+def _bench_in_process(torch, argv):
+    """``bench.main(argv)`` here, launch counts set to 0 just before and read
+    just after: ``(exit code, its last record, the launches)``."""
+    import io
+
+    from style_transfer_tpu_torch import bench
+
+    counters = _counters()
+    for c in counters.values():
+        c.n = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(argv)
+    torch.cuda.synchronize()
+    launches = {name: c.n for name, c in counters.items()}
+    return rc, json.loads(out.getvalue().splitlines()[-1]), launches
+
+
+def _bench_entry(torch):
+    """Three steps of ``entry()`` on the card against ``build_step`` on the
+    CPU in fp32 on the same images (see :func:`bench_check`, part 4)."""
+    import numpy as np
+
+    from style_transfer_tpu_torch import entry
+    from style_transfer_tpu_torch.models.weights import random_fixture
+
+    counters = _counters()
+    for c in counters.values():
+        c.n = 0
+    t0 = time.perf_counter()
+    fn, (p, image, state, c_t, s_t) = entry.entry()
+    image0, losses = image.cpu(), []
+    for _ in range(ENTRY_STEPS):
+        image, state, loss = fn(p, image, state, c_t, s_t)
+        losses.append(loss)
+    losses = [float(l) for l in losses]
+    card_s = time.perf_counter() - t0
+    gram = counters["pallas_gram"].n
+    params, mean, std = random_fixture(0)
+    cpu_fn, (cp, cimage, cstate, cc, cs) = entry.build_step(
+        params, mean, std, (512, 512), device="cpu", compute_dtype=torch.float32)
+    same_images = bool(torch.equal(cimage, image0))
+    cpu_losses = []
+    for _ in range(ENTRY_STEPS):
+        cimage, cstate, loss = cpu_fn(cp, cimage, cstate, cc, cs)
+        cpu_losses.append(float(loss))
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)]
+    emit({"phase": "bench", "part": "entry", "losses": losses, "cpu_fp32_losses": cpu_losses,
+          "rel": rel, "pallas_gram_launches": gram, "same_images": same_images,
+          "card_seconds": card_s})
+    failures = []
+    if not same_images:
+        failures.append("entry: the CPU step drew other images")
+    if not all(np.isfinite(losses)):
+        failures.append(f"entry: non-finite losses {losses}")
+    if gram <= 0:
+        failures.append("entry: pallas_gram never launched")
+    if rel[0] > TOL_TERMS or max(rel[1:]) > TOL_CURVE:
+        failures.append(f"entry: losses {losses} depart from the CPU's {cpu_losses} (rel {rel}; "
+                        f"limits {TOL_TERMS} on the first, {TOL_CURVE} after)")
+    return failures
+
+
+def bench_check(torch):
+    """Phase 17: the perf harness and the step entry.
+
+    1. ``python -m style_transfer_tpu_torch.bench`` with each of
+       :data:`BENCH_RUNS` in a subprocess: exit 0, every stdout line JSON,
+       the last one holding every key of ``bench.expected_keys`` for its
+       flags, route ``cuda``, no error, no module of :data:`FOREIGN` in
+       ``-X importtime``'s list; under ``--quick`` ``its_per_sec_512`` > 0,
+       0 < ``mfu_512`` < 100 and 0 < ``device_busy_512`` <= 1; the ladder's
+       wall clock > 0;
+    2. ``bench.main(["--quick"])`` here: the chain's four kernels launched;
+       ``--size 2048 --iterations 10 --skip-rates --skip-4k``:
+       ``conv_single`` launched (at 2048 px the size rule takes the singles);
+    3. ``--quick --budget-s 0.5`` in a subprocess: exit code 3, the last line
+       a record with ``"cut"``;
+    4. three steps of ``entry()`` (512 px, bf16): finite losses,
+       ``pallas_gram`` launched, and against ``entry.build_step`` on the CPU
+       in fp32 on the same images the first loss within ``TOL_TERMS`` and
+       the next two within ``TOL_CURVE``. (The loss need not fall: with the
+       fixture weights the first Adam step overshoots, in the reference's
+       step as in the port's.)
+
+    Any failure raises, after every part has run."""
+    from style_transfer_tpu_torch import bench
+
+    failures, seconds = [], {}
+    for argv in BENCH_RUNS:
+        t0 = time.perf_counter()
+        rc, lines, bad, foreign, log = _bench_subprocess(argv)
+        seconds[" ".join(argv)] = time.perf_counter() - t0
+        last = lines[-1] if lines else {}
+        missing = sorted(bench.expected_keys(argv) - set(last))
+        emit({"phase": "bench", "part": "subprocess", "argv": argv, "rc": rc,
+              "lines": len(lines), "unparsed": bad[:5], "missing_keys": missing,
+              "foreign_modules": foreign, "record": last})
+        name = f"bench {' '.join(argv)}"
+        if rc != 0 or bad or missing or foreign or not lines:
+            failures.append(f"{name}: rc {rc}, unparsed {bad[:3]}, missing {missing}, "
+                            f"foreign {foreign}; stderr: {log[-1500:]}")
+            continue
+        if last["route"] != "cuda" or last["errors"]:
+            failures.append(f"{name}: route {last['route']}, errors {last['errors']}")
+        if "--quick" in argv and not (
+                last["its_per_sec_512"] > 0 and 0 < last["mfu_512"] < 100
+                and 0 < last["device_busy_512"] <= 1):
+            failures.append(f"{name}: 512 px rate {last['its_per_sec_512']}, mfu "
+                            f"{last['mfu_512']}, busy {last['device_busy_512']} out of range")
+        if "--quick" not in argv and not last["value"] > 0:
+            failures.append(f"{name}: wall clock {last['value']}")
+
+    for argv, need in ((["--quick"], BENCH_CHAIN),
+                       (["--size", "2048", "--iterations", "10", "--skip-rates", "--skip-4k"],
+                        ("conv_single",))):
+        t0 = time.perf_counter()
+        rc, last, launches = _bench_in_process(torch, argv)
+        seconds["in process " + " ".join(argv)] = time.perf_counter() - t0
+        emit({"phase": "bench", "part": "in_process", "argv": argv, "rc": rc,
+              "launches": launches, "headline": [last["metric"], last["value"]]})
+        idle = [k for k in need if launches[k] <= 0]
+        if rc != 0 or idle:
+            failures.append(f"bench.main({argv}): rc {rc}, kernels not launched {idle}")
+
+    t0 = time.perf_counter()
+    repo, env = _port_env()
+    proc = subprocess.run([sys.executable, "-m", "style_transfer_tpu_torch.bench", "--quick",
+                           "--budget-s", "0.5"], cwd=repo, env=env, capture_output=True,
+                          text=True, timeout=300)
+    seconds["budget"] = time.perf_counter() - t0
+    try:
+        cut = json.loads(proc.stdout.splitlines()[-1]).get("cut")
+    except (IndexError, ValueError):
+        cut = None
+    emit({"phase": "bench", "part": "budget", "rc": proc.returncode, "cut": cut})
+    if proc.returncode != 3 or not cut:
+        failures.append(f"bench --budget-s 0.5: rc {proc.returncode}, cut {cut}")
+
+    t0 = time.perf_counter()
+    failures += _bench_entry(torch)
+    seconds["entry"] = time.perf_counter() - t0
+    emit({"phase": "bench", "part": "seconds", "seconds": seconds})
+    if failures:
+        raise AssertionError(f"bench: {failures}")
+
+
 PHASES = ("kernel", "segment_forms", "parity", "stylize", "large", "fused_block1", "objective",
-          "profile", "ladder", "lbfgs", "cli", "pipeline", "mesh", "surface")
+          "profile", "ladder", "lbfgs", "cli", "pipeline", "mesh", "surface", "bench")
 
 
 def main(argv=None) -> int:
@@ -3681,6 +3880,8 @@ def main(argv=None) -> int:
         mesh_forms = timed("mesh", lambda: mesh_check(torch, params, mean, std, args.steps))
     if "surface" in phases:
         timed("surface", lambda: surface_check(torch, params, args.steps))
+    if "bench" in phases:
+        timed("bench", lambda: bench_check(torch))
     emit({"phase": "memory", "peak_mib": {"objective": peak.get("objective")},
           "seconds_by_phase": seconds_by_phase})
 

@@ -543,3 +543,25 @@ def test_cuda_make_conv_pair_is_conv_pair(pool, gram, cuda_device):
     want = CP.conv_pair(x, *ws, pool=pool, gram=gram)
     got, want = (got, want) if gram else ((got,), (want,))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_bench_quick_record(cuda_device, capsys):
+    """``python -m style_transfer_tpu_torch.bench --quick`` on the card: the
+    last record carries the 512 px rate on the host's clock beside the
+    events', the FLOP count, MFU against the H100 peak, the busy share and
+    the peak memory, on the ``cuda`` route."""
+    import json
+
+    from style_transfer_tpu_torch import bench
+
+    assert bench.main(["--quick"]) == 0
+    rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert set(rec) == bench.expected_keys(["--quick"])
+    assert rec["route"] == "cuda" and rec["errors"] == []
+    assert rec["metric"] == "its_per_sec_512px" and rec["value"] == rec["its_per_sec_512"] > 0
+    assert rec["model_tflops_per_it_512"] == bench.model_tflops_per_iter(512)
+    assert rec["achieved_tflops_512"] == pytest.approx(
+        rec["its_per_sec_512"] * rec["model_tflops_per_it_512"])
+    assert 0 < rec["mfu_512"] < 100 and 0 < rec["device_busy_512"] <= 1
+    assert rec["peak_mib_512"] > 0 and rec["its_per_sec_512_event"] > 0

@@ -24,7 +24,9 @@ MODULES = [
     "style_transfer_tpu_torch",
     "style_transfer_tpu_torch.__main__",
     "style_transfer_tpu_torch.api",
+    "style_transfer_tpu_torch.bench",
     "style_transfer_tpu_torch.cli",
+    "style_transfer_tpu_torch.entry",
     "style_transfer_tpu_torch.linesearch",
     "style_transfer_tpu_torch.optim",
     "style_transfer_tpu_torch.schedule",
