@@ -153,9 +153,20 @@ Phases, one JSON object per line on stdout:
    times; 512x512 with 8 shards; configuration 5 through ``stylize()``
    (3840x2160 over its five scales, ``--steps`` a scale, 8 shards) against
    the unsharded run, with no synchronizing call in any Adam chunk;
-   ``parallel.dryrun.dryrun_multichip(8, [cuda:0] * 8)``; and, where more
+   ``parallel.dryrun.dryrun_multichip(8, [cuda:0] * 8)``; where more
    than one card is visible, parts 1 and 3 over real devices (else a line
-   says they did not run).
+   says they did not run); then the sharded state, each line with
+   the card's name and power limit: ``make_sharded_tv_loss`` at 2048x2048
+   on 2, 3 and 8 shards against its plain form per shard and the unsharded
+   ``tv_loss`` (one launch each way per shard, value, gradient, device
+   ms, bound); a 2048x2048 Adam run with the EMA in chunks of 50 on 8
+   shards against the unsharded run (no synchronizing call in a chunk, the
+   curve within ``TOL_CURVE``, it/s, device ms per step, peak, and a walk
+   of every chunk record and of the gradient: each image-sized tensor on
+   its shard's rows and device, the bytes per shard and on home, and what
+   the home device held before); configuration 4 at 256 -> 1024 px on 4
+   shards to its early stop beside the unsharded run, with the same walk;
+   a checkpoint from the mesh resumed without one and the reverse.
 16. surface — what the port adds beside the loop: a torchvision-layout
    ``state_dict`` of the fixture through the port's converter (``python -m
    style_transfer_tpu_torch.scripts.convert_weights``, with no JAX module
@@ -190,9 +201,10 @@ launch count to 0 just before they run and read them all just after. Then a
 ``{"kernels": [...]}`` summary line (eleven kernels, each with the launches
 of the phase whose path runs it, forward and backward kernels alike, its
 error, its time, the plain version's, the library call's and its bound, for
-the losses the two-pass bound too; the five chain kernels that run per shard
-also with ``mesh``: their launches in an 8-shard 2048^2 evaluation and their
-sharded and unsharded times and bounds alone), the nvidia-smi line,
+the losses the two-pass bound too; the five chain kernels and ``tv_loss``,
+which run per shard, also with ``mesh``: their launches in an 8-shard
+2048^2 evaluation and their sharded and unsharded times and bounds alone,
+TV's on 8 shards of ``make_sharded_tv_loss`` with its plain form's time), the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failed phase raises: the
 script exits nonzero and prints no ok line. Without a CUDA device it exits
 with code 2 before doing anything else.
@@ -2254,6 +2266,7 @@ class _DispatchSpy:
         import traceback
         import warnings
 
+        from style_transfer_tpu_torch.api import _hw
         from style_transfer_tpu_torch.ops.kernels import _launch
 
         real, torch = self.st._dispatch_chunk, self.torch
@@ -2282,7 +2295,7 @@ class _DispatchSpy:
                 self.syncs.append(syncs)
             if self.markers:
                 _launch.noop()
-            self.chunks.append((tuple(args[1].shape[1:3]), kw["done_iters"] + kw["n"]))
+            self.chunks.append((_hw(args[1]), kw["done_iters"] + kw["n"]))
             self.queued += 1
             return rec
 
@@ -2725,6 +2738,13 @@ CONFIG5_HW, CONFIG5_MIN_SCALE = (2160, 3840), 240
 #: Configuration 5's 1920 px scale: pool3 has odd rows, so block 4 and
 #: conv5_1 run the plain sharded VGG (cuDNN per shard) and ``pallas_gram``.
 CONFIG5_ODD_HW = (1080, 1920)
+#: The sharded TV's shard counts at MESH_SIDE^2 (three cuts unevenly).
+MESH_TV_SHARDS = (2, 3, 8)
+#: The sharded state's Adam run at MESH_SIDE^2: steps, chunk, EMA decay.
+MESH_ADAM_STEPS, MESH_ADAM_CHUNK, MESH_ADAM_DECAY = 100, 50, 0.9
+#: Configuration 4 on the mesh (``configs/config4_lbfgs_tv_1024.toml``, as
+#: the bench runs it): its shards.
+MESH_CONFIG4_SHARDS = 4
 
 
 class _ShardLaunches:
@@ -2954,6 +2974,9 @@ def _mesh_objectives(torch, params, mean, std, *, hw, shards, routes, devices, w
                     bad.append(f"kernels not launched on every shard: {not_every_shard}")
                 if any(v != n_used for v in ratio.values()):
                     bad.append(f"launches not {n_used}x the unsharded chain's: {ratio}")
+                tv = got["launches"].get("tv_loss", 0)
+                if tv != n_used * ref["launches"].get("tv_loss", 0):
+                    bad.append(f"tv_loss launched {tv} times, not once each way per shard")
                 # no full-size gather: the stored activations grow by the halo
                 # rows only (a pair's 2 rows each way at the deepest two-conv
                 # level, pool3's H/8 rows, bound every segment's share)
@@ -3115,6 +3138,7 @@ def _mesh_config5(torch, params, mean, std, steps, devices, n):
     import numpy as np
 
     from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
+    from style_transfer_tpu_torch.api import _hw
     from style_transfer_tpu_torch.parallel import mesh as M
 
     r = np.random.RandomState(5)
@@ -3130,7 +3154,7 @@ def _mesh_config5(torch, params, mean, std, steps, devices, n):
     def vgg(cfg_, image, cl, sl, remat=False):
         out = real_vgg(cfg_, image, cl, sl, remat)
         if cl and sl:  # the objective, not a capture
-            forms[image.shape[1]] = [list(p) for p in st.last_route]
+            forms[_hw(image)[0]] = [list(p) for p in st.last_route]
         return out
 
     st._vgg = vgg
@@ -3200,6 +3224,364 @@ def _counted_stylize_events(torch, st, content, style, cfg, shards):
     return out, curves, summary, seconds, {k: c.n for k, c in counters.items()}
 
 
+def _mesh_sharded_tv(torch, side, shard_counts, card):
+    """Part 6 of :func:`mesh_check`: ``make_sharded_tv_loss`` at ``side`` x
+    ``side`` on meshes of ``shard_counts`` shards of the one card, the kernel
+    form against its plain form (plain torch on every shard, ``fused=False``)
+    and against the unsharded ``tv_loss`` kernel: value and gradient for the
+    cotangent 0.7 (relative errors, per shard), the kernel launches of one
+    call (one forward and one backward per shard), the fwd+bwd device ms of
+    the three and the bound. Returns the failures and, for the kernels
+    line, the row of the most shards."""
+    import numpy as np
+
+    from style_transfer_tpu_torch.ops.kernels import epilogue as EP
+    from style_transfer_tpu_torch.ops.kernels import tolerances as T
+    from style_transfer_tpu_torch.parallel import mesh as M
+
+    img = torch.from_numpy(np.random.RandomState(side).rand(1, side, side, 3)
+                           .astype(np.float32)).cuda()
+    ct = torch.full((), 0.7, device="cuda")
+
+    def run(fn, xs):
+        leaves = [x.detach().requires_grad_(True) for x in xs]
+        value = fn(leaves)
+        return value.detach(), torch.autograd.grad(value, leaves, ct)
+
+    def device_ms(fn):
+        """``(ms, source)``: the profiler's device ms per call; where three
+        traces saw no device event (in the whole script's runs, the
+        unsharded call, whose trace holds only the two TV kernels), the
+        median of 20 CUDA-event-timed calls, host gaps included."""
+        try:
+            return _device_ms(torch, fn), "profiler"
+        except RuntimeError:
+            return statistics.median(_wall_ms(torch, fn, reps=20)), "cuda_events"
+
+    whole = lambda xs: EP.tv_loss(xs[0])  # noqa: E731
+    v_ref, (g_ref,) = run(whole, [img])
+    ms_ref, src_ref = device_ms(lambda: run(whole, [img]))
+    flops = 10.0 * img.numel()  # the kernel phase's count for TV
+    bound, bound_by = _bound(2 * _nbytes(img), flops, "fp32")  # the image in, its gradient out
+    rows, failures = {}, []
+    for n in shard_counts:
+        mesh = M.make_mesh(devices=["cuda:0"] * n)
+        xs = M.shard_image(img, mesh)
+        kernel = EP.make_sharded_tv_loss(mesh)
+        plain = EP.make_sharded_tv_loss(mesh, fused=False)
+        EP.launches.n = 0
+        v, g = run(kernel, xs)
+        launches = EP.launches.n
+        v_plain, g_plain = run(plain, xs)
+        per_shard = [_rel(a, b) for a, b in zip(g, g_plain)]
+        errors = {"value_vs_plain": abs(float(v - v_plain)) / abs(float(v_plain)),
+                  "grad_vs_plain_per_shard": per_shard,
+                  "value_vs_unsharded": abs(float(v - v_ref)) / abs(float(v_ref)),
+                  "grad_vs_unsharded": _rel(torch.cat(g, 1), g_ref)}
+        (ms, src), (plain_ms, plain_src) = (device_ms(lambda: run(kernel, xs)),
+                                            device_ms(lambda: run(plain, xs)))
+        row = {"shards": n, "rows": [int(x.shape[1]) for x in xs], "value": float(v),
+               "unsharded_value": float(v_ref), "errors": errors, "launches_per_call": launches,
+               "ms": ms, "ms_source": src, "plain_ms": plain_ms, "plain_ms_source": plain_src,
+               "unsharded_ms": ms_ref, "unsharded_ms_source": src_ref, "bound_ms": bound,
+               "bound_by": bound_by, "max_abs_err": _max_abs(torch.cat(g, 1), g_ref)}
+        rows[n] = row
+        worst = max([errors["value_vs_plain"], errors["value_vs_unsharded"],
+                     errors["grad_vs_unsharded"]] + per_shard)
+        if worst > T.TOL_TV:
+            failures.append(f"sharded TV on {n} shards departs beyond {T.TOL_TV}: {errors}")
+        if launches != 2 * n:
+            failures.append(f"sharded TV on {n} shards: {launches} launches, not {2 * n}")
+    emit({"phase": "mesh", "part": f"sharded_tv_{side}", "nvidia_smi": card,
+          "rows": list(rows.values()), "tol": T.TOL_TV})
+    return failures, rows[max(shard_counts)]
+
+
+def _walk_placement(shards_of, mesh, h, w):
+    """The placement of each image-sized tensor of a chunk's record (or of
+    a gradient): for each, whether it is a tuple of shards at ``mesh``'s
+    ``row_bounds`` rows, each on its shard's device with storage of its own
+    size, and its bytes per shard. Returns (ok, bytes per shard index, the
+    unsharded bytes, names not placed)."""
+    from style_transfer_tpu_torch.parallel import mesh as M
+
+    bounds = M.row_bounds(h, mesh.size)
+    per, whole, bad = [0] * len(bounds), 0, []
+    for name, t in shards_of:
+        if not isinstance(t, tuple) or len(t) != len(bounds):
+            bad.append(name)
+            continue
+        for i, (x, (lo, hi), dev) in enumerate(zip(t, bounds, mesh.devices)):
+            ax = M.row_axis(x)
+            nbytes = x.numel() * x.element_size()
+            if (x.device != dev or x.shape[ax] != hi - lo or x.shape[ax + 1] != w
+                    or x.untyped_storage().nbytes() != nbytes):
+                bad.append(f"{name}[{i}]")
+            per[i] += nbytes
+            whole += nbytes
+    return not bad, per, whole, bad
+
+
+class _PlacementSpy:
+    """Walks each chunk record that ``StyleTransfer._dispatch_chunk`` of
+    ``st`` returns (:func:`_walk_placement`: the image, the EMA, the
+    display image, every image-sized optimizer leaf) and the first gradient
+    each optimizer's update sees, keeping only the results (a record of
+    configuration 4 holds 20 ring images)."""
+
+    def __init__(self, torch, st):
+        self.torch, self.st = torch, st
+        self.records, self.grad = [], None
+
+    def __enter__(self):
+        from style_transfer_tpu_torch import optim
+        from style_transfer_tpu_torch.api import _hw
+
+        st, real = self.st, self.st._dispatch_chunk
+        mesh = st.mesh
+
+        def dispatch(*a, **kw):
+            rec = real(*a, **kw)
+            h, w = _hw(rec.image)
+            leaves = [(f"opt_state[{i}]", l) for i, l in
+                      enumerate(optim.state_leaves(rec.opt_state)) if isinstance(l, tuple)]
+            named = [("image", rec.image)] + ([("ema", rec.ema)] if rec.ema is not None else [])
+            named += [("snap", rec.snap)] if rec.snap is not None else []
+            ok, per, whole, bad = _walk_placement(named + leaves, mesh, h, w)
+            scalars_home = all(l.device == mesh.home for l in optim.state_leaves(rec.opt_state)
+                               if isinstance(l, self.torch.Tensor))
+            self.records.append({"size": [h, w], "tensors": len(named + leaves), "ok": ok,
+                                 "scalars_on_home": scalars_home, "not_placed": bad,
+                                 "bytes_per_shard": per, "bytes_unsharded": whole})
+            return rec
+
+        self._updates = {cls: cls.update for cls in (optim.Adam, optim.LBFGS)}
+
+        def spy(update):
+            def spied(opt, grad, *a, **kw):
+                if self.grad is None:
+                    h, w = _hw(grad)
+                    ok, per, _, bad = _walk_placement([("grad", grad)], mesh, h, w)
+                    self.grad = {"ok": ok, "bytes_per_shard": per, "not_placed": bad}
+                return update(opt, grad, *a, **kw)
+
+            return spied
+
+        for cls, update in self._updates.items():
+            cls.update = spy(update)
+        st._dispatch_chunk = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        for cls, update in self._updates.items():
+            cls.update = update
+        self.st.__dict__.pop("_dispatch_chunk", None)  # an inner spy may have taken it out
+
+    def summary(self, depth):
+        """Whether every record and the gradient were placed; the bytes of
+        the ``depth`` records alive at once (the pipelined loop's), on each
+        shard now and on the home device before this placement (the image,
+        the EMA, the display image and the optimizer state whole there)."""
+        alive = self.records[-depth:]
+        per = [sum(r["bytes_per_shard"][i] for r in alive)
+               for i in range(len(alive[-1]["bytes_per_shard"]))]
+        return {"records": len(self.records), "tensors_per_record": self.records[-1]["tensors"],
+                "all_placed": all(r["ok"] and r["scalars_on_home"] for r in self.records)
+                and bool(self.grad and self.grad["ok"]),
+                "not_placed": sorted({b for r in self.records for b in r["not_placed"]}),
+                "grad": self.grad, "records_alive": len(alive),
+                "image_bytes_per_shard_after": per, "image_bytes_home_after": per[0],
+                "image_bytes_home_before": sum(r["bytes_unsharded"] for r in alive)}
+
+
+def _mesh_adam(torch, params, mean, std, side, n, card):
+    """Part 7 of :func:`mesh_check`: a ``side``^2 Adam run with the EMA in
+    chunks of :data:`MESH_ADAM_CHUNK` on a mesh of ``n`` shards of the one
+    card, against the unsharded run: synchronizing calls per chunk, the loss
+    curve (``TOL_CURVE``), steady it/s, device ms per step (one step as the
+    loop queues it, EMA and loss copy included) and the peak; the placement
+    walk of every record and of the gradient, and the image-sized bytes
+    per shard and on home. Returns the failures."""
+    import numpy as np
+
+    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
+    from style_transfer_tpu_torch.api import _PIPELINE_DEPTH
+    from style_transfer_tpu_torch.parallel import mesh as M
+
+    r = np.random.RandomState(17)
+    content = r.rand(side, side, 3).astype(np.float32)
+    style = r.rand(side, side, 3).astype(np.float32)
+    cfg = StylizeConfig(size=side, min_scale=side, iterations=(MESH_ADAM_STEPS,),
+                        chunk_size=MESH_ADAM_CHUNK, avg_decay=MESH_ADAM_DECAY)
+    mesh = M.make_mesh(devices=["cuda:0"] * n)
+    st = StyleTransfer(params, mean=mean, std=std, device=mesh.home, mesh=mesh)
+    with _PlacementSpy(torch, st) as walk, _DispatchSpy(torch, st, sync_mode="warn") as spy:
+        out, curves, summary, seconds = _stylize(torch, st, content, style, cfg)
+    ref = StyleTransfer(params, mean=mean, std=std, device="cuda")
+    out1, curves1, summary1, seconds1 = _stylize(torch, ref, content, style, cfg)
+
+    def step_ms(st_):
+        """Device ms and launches of one step as ``_dispatch_chunk`` queues
+        it, on the state the loop starts from."""
+        from style_transfer_tpu_torch.optim import make_step_fn
+
+        objective = st_._build_objective(cfg)
+        image = torch.from_numpy(content)[None].cuda()
+        c = st_._capture_content(cfg, image)
+        s = st_._capture_style(cfg, torch.from_numpy(style)[None].cuda())
+        step, opt = make_step_fn(lambda im: objective(im, c, s), cfg.optimizer)
+        x = M.shard_image(image, st_.mesh)
+        state = opt.init(x)
+        ema = M.map_image(torch.clone, x)
+        ms, launches, _ = _device_by_name(torch, lambda: st_._dispatch_chunk(
+            step, x, ema, state, n=1, done_iters=0, decay=cfg.avg_decay, snapshot=True))
+        return ms, launches
+
+    ms, launches = step_ms(st)
+    ms1, launches1 = step_ms(ref)
+    dev = max(abs(a - b) / abs(b) for a, b in zip(curves[0], curves1[0]))
+    syncs = [len(c) for c in spy.syncs]
+    placement = walk.summary(_PIPELINE_DEPTH + 1)
+    emit({"phase": "mesh", "part": f"sharded_state_adam_{side}", "nvidia_smi": card,
+          "devices": [str(d) for d in mesh.devices], "steps": MESH_ADAM_STEPS,
+          "chunk": MESH_ADAM_CHUNK, "avg_decay": MESH_ADAM_DECAY,
+          "syncs_per_chunk": syncs, "sync_where": sorted({w for c in spy.syncs for w in c}),
+          "dev_from_unsharded": dev, "tol_curve": TOL_CURVE,
+          "its_per_sec_steady": summary["per_scale_its_per_sec"],
+          "unsharded_its_per_sec_steady": summary1["per_scale_its_per_sec"],
+          "seconds": seconds, "unsharded_seconds": seconds1,
+          "step_device_ms": ms, "unsharded_step_device_ms": ms1,
+          "device_launches_per_step": launches, "unsharded_device_launches_per_step": launches1,
+          "peak_mib": summary["peak_mib"], "unsharded_peak_mib": summary1["peak_mib"],
+          "placement": placement, "loss_per_step": curves[0],
+          "unsharded_loss_per_step": curves1[0]})
+    failures = []
+    if any(syncs) or len(syncs) != MESH_ADAM_STEPS // MESH_ADAM_CHUNK:
+        failures.append(f"sharded Adam: synchronizing calls per chunk {syncs}")
+    if dev > TOL_CURVE:
+        failures.append(f"sharded Adam: curve {dev} from the unsharded run")
+    if not placement["all_placed"]:
+        failures.append(f"sharded Adam: tensors not on their shards: {placement['not_placed']}")
+    if out.shape != (side, side, 3) or not np.isfinite(out).all():
+        failures.append("sharded Adam: output shape or values")
+    return failures
+
+
+def _mesh_config4(torch, params, mean, std, n, card):
+    """Part 8 of :func:`mesh_check`: configuration 4 (L-BFGS, memory 10, TV
+    weight 8, early stop, 256 -> 1024 px, as the bench runs it) on a mesh of
+    ``n`` shards of the one card, to its stop, beside the unsharded run: the
+    iterations and final loss per scale, the seconds, and the placement walk
+    of every record. Returns the failures."""
+    import numpy as np
+
+    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
+    from style_transfer_tpu_torch.api import _PIPELINE_DEPTH
+    from style_transfer_tpu_torch.bench import CONFIG4
+    from style_transfer_tpu_torch.optim import OptimizerSpec
+    from style_transfer_tpu_torch.parallel import mesh as M
+
+    r = np.random.RandomState(4)
+    content = r.rand(1024, 1024, 3).astype(np.float32)
+    style = r.rand(1024, 1024, 3).astype(np.float32)
+    cfg = StylizeConfig(optimizer=OptimizerSpec("lbfgs", memory_size=10), **CONFIG4)
+
+    def run(st):
+        per_scale = {}
+
+        def cb(ev):
+            per_scale[ev.scale_index] = {"size": list(ev.size), "iterations": ev.iteration,
+                                         "loss": ev.loss, "shards": ev.shards}
+
+        t0 = time.perf_counter()
+        out = st.stylize(content, style, cfg, callback=cb)
+        torch.cuda.synchronize()
+        return out, per_scale, time.perf_counter() - t0
+
+    mesh = M.make_mesh(devices=["cuda:0"] * n)
+    st = StyleTransfer(params, mean=mean, std=std, device=mesh.home, mesh=mesh)
+    with _PlacementSpy(torch, st) as walk:
+        out, scales, seconds = run(st)
+    _, scales1, seconds1 = run(StyleTransfer(params, mean=mean, std=std, device="cuda"))
+    placement = walk.summary(_PIPELINE_DEPTH + 1)
+    emit({"phase": "mesh", "part": "sharded_state_config4", "nvidia_smi": card,
+          "devices": [str(d) for d in mesh.devices], "per_scale": scales,
+          "unsharded_per_scale": scales1, "seconds": seconds, "unsharded_seconds": seconds1,
+          "final_loss": scales[max(scales)]["loss"],
+          "unsharded_final_loss": scales1[max(scales1)]["loss"], "placement": placement})
+    failures = []
+    stopped = [v["iterations"] < c for v, c in zip(scales.values(), cfg.iterations)]
+    if len(scales) != len(cfg.iterations) or not all(stopped):
+        failures.append(f"config4 on {n} shards: no early stop at every scale: {scales}")
+    if not placement["all_placed"]:
+        failures.append(f"config4 on {n} shards: tensors not on their shards: "
+                        f"{placement['not_placed']}")
+    if out.shape != (1024, 1024, 3) or not np.isfinite(out).all():
+        failures.append(f"config4 on {n} shards: output shape or values")
+    return failures
+
+
+def _mesh_resume(torch, params, mean, std, n, card):
+    """Part 9 of :func:`mesh_check`: a checkpoint taken on a mesh of ``n``
+    shards resumed without a mesh, and one taken without a mesh resumed on
+    the mesh (Adam with the EMA at 512 px, chunks of 5): the checkpoint's
+    leaves have the unsharded shapes, restore onto the other placement's
+    state with the same bits, and the resumed run's next chunk follows the
+    uninterrupted run of the checkpoint's placement (``TOL_CURVE``).
+    Returns the failures."""
+    import numpy as np
+
+    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
+    from style_transfer_tpu_torch.parallel import mesh as M
+    from style_transfer_tpu_torch.utils.ckpt import flatten_opt_state, restore_opt_state
+
+    r = np.random.RandomState(12)
+    content = r.rand(512, 512, 3).astype(np.float32)
+    style = r.rand(512, 512, 3).astype(np.float32)
+    cfg = StylizeConfig(size=512, min_scale=512, iterations=(10,), chunk_size=5, avg_decay=0.9)
+    mesh = M.make_mesh(devices=["cuda:0"] * n)
+    sts = {"mesh": StyleTransfer(params, mean=mean, std=std, device=mesh.home, mesh=mesh),
+           "one": StyleTransfer(params, mean=mean, std=std, device="cuda")}
+
+    def run(st, **kw):
+        events, states = [], []
+
+        def cb(ev):
+            if not states:
+                states.append(ev.get_state())
+            events.append([float(v) for v in ev.losses["loss"]])
+
+        st.stylize(content, style, cfg, callback=cb, **kw)
+        return events, states[0]
+
+    runs = {k: run(st) for k, st in sts.items()}
+    shapes = {k: [list(np.shape(l)) for l in v[1]["opt_state_leaves"]] + [list(v[1]["image"].shape)]
+              for k, v in runs.items()}
+    opt = cfg.optimizer.build()
+    image = torch.zeros(1, 512, 512, 3, device="cuda")
+    same_bits = {}
+    for src, template in (("mesh", image), ("one", M.shard_image(image, mesh))):
+        leaves = runs[src][1]["opt_state_leaves"]
+        back = flatten_opt_state(restore_opt_state(opt.init(template), leaves))
+        same_bits[src] = all(np.array_equal(a, b) for a, b in zip(back, leaves))
+    devs = {}
+    for src, dst in (("mesh", "one"), ("one", "mesh")):
+        resumed, _ = run(sts[dst], resume_state=runs[src][1])
+        want = runs[src][0][1]
+        devs[f"{src}_to_{dst}"] = max(abs(a - b) / abs(b) for a, b in zip(resumed[0], want))
+    emit({"phase": "mesh", "part": "sharded_state_resume", "nvidia_smi": card, "shards": n,
+          "leaf_shapes": shapes, "restored_bits_equal": same_bits,
+          "next_chunk_dev_from_uninterrupted": devs, "tol_curve": TOL_CURVE})
+    failures = []
+    if shapes["mesh"] != shapes["one"]:
+        failures.append(f"resume: the mesh's checkpoint shapes {shapes}")
+    if not all(same_bits.values()):
+        failures.append(f"resume: restored leaves differ: {same_bits}")
+    if max(devs.values()) > TOL_CURVE:
+        failures.append(f"resume: resumed runs depart: {devs}")
+    return failures
+
+
 def mesh_check(torch, params, mean, std, steps):
     """Phase 15: the spatial mesh (``parallel/mesh.py``) at VGG-19's full
     widths, default layers, average pooling, TV weight 2, Adam, seeded
@@ -3230,11 +3612,25 @@ def mesh_check(torch, params, mean, std, steps):
        and no synchronizing call in any pipelined Adam chunk;
     4. ``parallel.dryrun.dryrun_multichip(8, [cuda:0] * 8)``, four variants;
     5. with more than one card visible, parts 1 and 3 over real devices;
-       else a line says that it did not run.
+       else a line says that it did not run;
+    6. ``make_sharded_tv_loss`` at 2048^2 on 2, 3 and 8 shards against its
+       plain form per shard and the unsharded ``tv_loss``, one launch each
+       way per shard (:func:`_mesh_sharded_tv`);
+    7. the sharded state: a 2048^2 Adam run with the EMA in chunks of 50
+       on 8 shards against the unsharded run, no synchronizing call in a
+       chunk, the placement of every record's tensors and of the gradient,
+       the image-sized bytes per shard and on home (:func:`_mesh_adam`);
+    8. configuration 4 at 256 -> 1024 px on 4 shards to its early stop
+       beside the unsharded run, with the same walk (:func:`_mesh_config4`);
+    9. a checkpoint crossing from the mesh to no mesh and back
+       (:func:`_mesh_resume`).
+    Parts 6-9 print the card's name and power limit on each line, and run
+    between parts 2 and 3.
 
     Returns, for the kernels line, each of the five sharded kernels'
     launches in an 8-shard evaluation of part 1 on the route that runs it
-    and its part-1 table row."""
+    and its part-1 table row, and for ``tv_loss`` its launches there and its
+    part-6 row."""
     from style_transfer_tpu_torch.parallel.dryrun import dryrun_multichip
 
     n_max = max(MESH_SHARDS)
@@ -3249,6 +3645,12 @@ def mesh_check(torch, params, mean, std, steps):
     for hw in ((MESH_SMALL_SIDE,) * 2, (MESH_TINY_SIDE,) * 2, CONFIG5_ODD_HW):
         failures += _mesh_objectives(torch, params, mean, std, hw=hw, shards=(n_max,),
                                      routes=("natural",), devices=one, witness=True)[0]
+    card = _nvidia_smi()
+    tv_fail, tv_row = _mesh_sharded_tv(torch, MESH_SIDE, MESH_TV_SHARDS, card)
+    failures += tv_fail
+    failures += _mesh_adam(torch, params, mean, std, MESH_SIDE, n_max, card)
+    failures += _mesh_config4(torch, params, mean, std, MESH_CONFIG4_SHARDS, card)
+    failures += _mesh_resume(torch, params, mean, std, MESH_CONFIG4_SHARDS, card)
     failures += _mesh_config5(torch, params, mean, std, steps, one, 8)
     try:
         dry = dryrun_multichip(8, one)
@@ -3268,9 +3670,11 @@ def mesh_check(torch, params, mean, std, steps):
               "note": "one CUDA device visible: parts 1 and 3 over real devices did not run"})
     if failures:
         raise AssertionError(f"mesh: {failures}")
-    return {k: dict(forms[k], launches_8_shards=max(launches[(r, n_max)].get(k, 0)
-                                                    for r in ("natural", "forced")))
-            for k in MESH_KERNELS}
+    out = {k: dict(forms[k], launches_8_shards=max(launches[(r, n_max)].get(k, 0)
+                                                   for r in ("natural", "forced")))
+           for k in MESH_KERNELS}
+    out["tv_loss"] = dict(tv_row, launches_8_shards=launches[("natural", n_max)]["tv_loss"])
+    return out
 
 
 # The surface phase: the validator's print sizes, and the plain VGG on the

@@ -96,22 +96,31 @@ residuals across the step; only the handoffs between kernels stay live.
 runs under ``torch.no_grad()`` and takes no checkpoint.
 
 ``StyleTransfer(mesh=...)`` is the reference's spatial mesh
-(``api.py:345-367``; ``parallel/mesh.py`` says what is sharded and where):
-each scale splits the preprocessed image along H into
+(``api.py:345-367``, ``:1375-1403``; ``parallel/mesh.py`` says what is
+sharded and where): each scale cuts the image along H into
 ``mesh.row_bounds`` shards, one per device of the mesh's first
 ``mesh.shard_count`` devices (reported as ``ProgressEvent.shards``), and
-the VGG runs on those shards. The chain keeps its gates and sends each
-segment to its sharded form (``make_sharded_block1``,
+the image stays so through the scale, as the reference's ``shard_image``
+places it: the optimizer state (``optim.py``), the EMA, the display image
+and each pipelined record hold shards of the same rows on the same
+devices. The objective preprocesses each shard on its device, the chain
+sends each segment to its sharded form (``make_sharded_block1``,
 ``make_sharded_pair`` for block 2 and the pairs, ``make_pair_of_singles(
-mesh=...)``, ``make_sharded_conv_gram``, ``make_sharded_gram_tail``); what
-the chain does not carry runs ``vgg.extract_features_sharded``, the
-counterpart of the reference's XLA-partitioned fallback. The content loss
-sums each shard's squared error on the home device and divides by the
-global count; the content targets are captured through the same mesh, on
-the same rows. Grams come home all-reduced; the style loss, TV and the
-total are computed there, and the image, the optimizer and the chunk loop
-stay there, unchanged. ``fused_block1`` is ignored under a mesh, as in the
-reference (``api.py:480-489``), and the auto thresholds of remat and of
+mesh=...)``, ``make_sharded_conv_gram``, ``make_sharded_gram_tail``), what
+the chain does not carry runs ``vgg.extract_features_sharded`` (the
+counterpart of the reference's XLA-partitioned fallback), and TV runs
+``EP.make_sharded_tv_loss`` (the reference's ``make_sharded_tv_loss``, also
+on the plain route, with the plain per-shard sums). The content loss sums
+each shard's squared error on the home device and divides by the global
+count; the content targets are captured through the same mesh, on the same
+rows. Grams come home all-reduced; the style loss and the total are
+computed there. A whole image given to the objective (a capture, a test)
+is cut first, differentiably. The image comes whole to the home device
+only between scales, for the resize (``parallel/mesh.py`` counts those
+transients); ``get_image``, ``get_state`` and the result gather the shards
+by rows on the host, so a checkpoint has the unsharded shapes and resumes
+with or without a mesh. ``fused_block1`` is ignored under a mesh, as in
+the reference (``api.py:480-489``), and the auto thresholds of remat and of
 pipelining count the pixels of the most loaded device (all of them where
 the mesh repeats one card).
 
@@ -292,7 +301,8 @@ class _PendingChunk:
     The record holds references where the reference's holds
     ``optimization_barrier`` copies: nothing the loop runs writes a tensor
     in place (the optimizers return new states), so a record keeps its
-    chunk's tensors however many chunks run after it."""
+    chunk's tensors however many chunks run after it. On a mesh each of
+    its image-sized tensors is a tuple of row shards."""
 
     n: int
     done_iters: int
@@ -333,19 +343,45 @@ def _chunk_event(device: torch.device):
 
 def _to_host(tensors: List[torch.Tensor], *, event, stream) -> List[np.ndarray]:
     """Numpy copies of ``tensors``, which the chunk that ends in ``event``
-    wrote. On the card they are copied on ``stream``, the side copy stream,
-    once ``event`` has completed: each copy waits for that chunk only, not
-    for the chunks queued after it on the compute stream, and any thread may
-    call this (the web monitor's executor does). A ``.cpu()`` there waits
-    for the side stream alone, and ``tensors`` holds the sources until it
-    returns, so the allocator cannot give their memory to a later chunk while
-    they are read. On the CPU the arrays share the tensors' memory, which
-    nothing writes in place."""
+    wrote; a tuple of row shards (a mesh's image-sized tensor) comes back as
+    one array, its shards copied by rows into one host buffer
+    (:func:`_rows_to_host`). On the card they are copied on ``stream``, the
+    side copy stream, once ``event`` has completed: each copy waits for that
+    chunk only, not for the chunks queued after it on the compute stream,
+    and any thread may call this (the web monitor's executor does). A
+    ``.cpu()`` there waits for the side stream alone, and ``tensors`` holds
+    the sources until it returns, so the allocator cannot give their memory
+    to a later chunk while they are read. On the CPU the arrays share the
+    tensors' memory, which nothing writes in place."""
     if stream is None:
-        return [t.detach().numpy() for t in tensors]
+        return [_rows_to_host(t, None) if isinstance(t, tuple) else t.detach().numpy()
+                for t in tensors]
     with torch.cuda.stream(stream):
         stream.wait_event(event)
-        return [t.detach().cpu().numpy() for t in tensors]
+        return [_rows_to_host(t, stream) if isinstance(t, tuple) else t.detach().cpu().numpy()
+                for t in tensors]
+
+
+def _rows_to_host(shards: Tuple[torch.Tensor, ...], stream) -> np.ndarray:
+    """The row shards of one tensor as one host array: on the card, each
+    shard copied into its rows of one pinned buffer (asynchronously on
+    ``stream`` for the shards of its device, which the caller made current;
+    a shard of another device blocks on that device's stream), then
+    ``stream`` synchronized; on the CPU (``stream`` None), the shards
+    concatenated."""
+    ax = M.row_axis(shards[0])
+    if stream is None:
+        return torch.cat([s.detach() for s in shards], dim=ax).numpy()
+    shape = list(shards[0].shape)
+    shape[ax] = sum(int(s.shape[ax]) for s in shards)
+    buf = torch.empty(shape, dtype=shards[0].dtype, pin_memory=True)
+    lo = 0
+    for s in shards:
+        n = int(s.shape[ax])
+        buf.narrow(ax, lo, n).copy_(s.detach(), non_blocking=s.device == stream.device)
+        lo += n
+    stream.synchronize()
+    return buf.numpy()
 
 
 class _CallbackSink:
@@ -515,12 +551,26 @@ class StyleTransfer:
         bounds = M.row_bounds(h, self.mesh.size)
         return self.mesh.take(len(bounds)), bounds
 
-    def _input(self, image: torch.Tensor):
-        """The preprocessed image in the compute dtype, scattered along H
-        over the scale's mesh where there is one; and that mesh."""
-        x = imgio.preprocess(image, self._mean, self._std).to(self.compute_dtype)
+    def _shards(self, image) -> List[torch.Tensor]:
+        """An image on the mesh as the list of its row shards: a tuple or
+        list of shards as it is, a whole image cut at the scale's
+        ``row_bounds`` by :func:`parallel.mesh.scatter_rows`
+        (differentiable: the gradient comes back whole)."""
+        if isinstance(image, (tuple, list)):
+            return list(image)
         mesh, bounds = self._scale_mesh(image.shape[1])
-        return (x if mesh is None else M.scatter_rows(x, bounds, mesh)), mesh
+        return M.scatter_rows(image, bounds, mesh)
+
+    def _input(self, image):
+        """The preprocessed image in the compute dtype, and the scale's mesh
+        (None without one). On a mesh, the list of its row shards, each
+        preprocessed on its own device; a whole image is cut first
+        (:meth:`_shards`)."""
+        if self.mesh is None:
+            return imgio.preprocess(image, self._mean, self._std).to(self.compute_dtype), None
+        xs = self._shards(image)
+        return ([imgio.preprocess(x, *M.replicas(x.device, self._mean, self._std))
+                 .to(self.compute_dtype) for x in xs], self.mesh.take(len(xs)))
 
     def _features(self, image: torch.Tensor, layers: Sequence[str],
                   remat: bool = False) -> Dict[str, torch.Tensor]:
@@ -570,16 +620,18 @@ class StyleTransfer:
 
     def _loss_fns(self, cfg: StylizeConfig) -> dict:
         """Fused-epilogue hooks for :func:`ops.losses.objective_terms`
-        (``api.py:415-460``): the TV kernel. The content and style epilogues
+        (``api.py:415-460``): the TV kernel; on a mesh the sharded TV (on
+        the plain route too, with plain per-shard sums) and the content
+        loss of sharded activations. The content and style epilogues
         (``ops/kernels/epilogue.py``) stay opt-in hooks of
         ``objective_terms``, as in the reference: in the 1024 px objective
         step on the H100 their gain was at the edge of the run-to-run spread,
         and their effect on the chain's small, host-bound scales was not
         measured (PERF.md)."""
-        fns = {"tv_loss_fn": EP.tv_loss} if cfg.use_fused else {}
         if self.mesh is not None:
-            fns["content_loss_fn"] = _mesh_content_loss(self.device)
-        return fns
+            return {"tv_loss_fn": EP.make_sharded_tv_loss(self.mesh, fused=cfg.use_fused),
+                    "content_loss_fn": _mesh_content_loss(self.device)}
+        return {"tv_loss_fn": EP.tv_loss} if cfg.use_fused else {}
 
     def _block1_eligible(self, cfg: StylizeConfig) -> bool:
         """Whether ``block1_full`` carries block 1 (``api.py:480-489``):
@@ -785,7 +837,9 @@ class StyleTransfer:
         loss_fns = self._loss_fns(cfg)
 
         def objective(image, c_targets, s_targets):
-            remat = self._use_remat(cfg, image.shape[1], image.shape[2])
+            if self.mesh is not None:  # the VGG and TV take the row shards
+                image = self._shards(image)
+            remat = self._use_remat(cfg, *_hw(image))
             feats, grams = self._vgg(cfg, image, cfg.content_layers, cfg.style_layers, remat)
             terms = L.objective_terms(
                 feats,
@@ -899,12 +953,13 @@ class StyleTransfer:
                     lambda im, c=c_targets, s=s_targets: objective(im, c, s), cfg.optimizer
                 )
                 if scale.index == resume_scale:
-                    image = self._state_image(resume_state["image"])
-                    if tuple(image.shape) != (1, h, w, 3):
+                    shape = np.shape(resume_state["image"])
+                    if tuple(shape) != (1, h, w, 3):
                         raise ValueError(
-                            f"checkpoint image shape {tuple(image.shape)} does not match "
+                            f"checkpoint image shape {tuple(shape)} does not match "
                             f"scale {scale.index} shape (1, {h}, {w}, 3)"
                         )
+                    image = self._state_image(resume_state["image"])
                     opt_state = restore_opt_state(optimizer.init(image),
                                                   list(resume_state["opt_state_leaves"]))
                     done_iters = min(resume_iters, scale.iterations)
@@ -915,14 +970,16 @@ class StyleTransfer:
                         image = self._init_image(cfg, content_s, init_image, (h, w))
                         ema = image.clone() if averaging else None
                     else:
-                        image = imgio.resize_image(image, (h, w))
+                        image = self._resized(image, (h, w))
                         if averaging:
-                            ema = imgio.resize_image(ema, (h, w))
-                    # contiguous, as a resumed image is: one layout, the same sums
-                    image = image.contiguous()
-                    ema = ema.contiguous() if averaging else None
+                            ema = self._resized(ema, (h, w))
+                    # contiguous, as a resumed image is: one layout, the same
+                    # sums; on a mesh, the row shards (every copy above is freed)
+                    image = M.shard_image(image.contiguous(), self.mesh)
+                    ema = M.shard_image(ema.contiguous(), self.mesh) if averaging else None
                     opt_state = optimizer.init(image)
                     done_iters = 0
+                del content_s  # captured, and the image's start: not kept for the scale
 
                 pipeline = _pipeline_auto(cfg, self._pixels(h, w))
                 shards = 1 if self.mesh is None else M.shard_count(h, self.mesh.size)
@@ -1031,6 +1088,10 @@ class StyleTransfer:
                 sink.close()
 
         result = ema if averaging else image
+        if isinstance(result, tuple):  # the row shards: each quantized or copied on its own
+            if output_dtype == "uint8":
+                return np.concatenate([imgio.quantize_u8(r).cpu().numpy() for r in result])
+            return np.clip(M.gather_rows(result, "cpu")[0].detach().numpy(), 0.0, 1.0)
         if output_dtype == "uint8":
             return imgio.quantize_u8(result).cpu().numpy()
         return np.clip(result[0].detach().cpu().numpy(), 0.0, 1.0)
@@ -1043,22 +1104,43 @@ class StyleTransfer:
         reads the device (an L-BFGS step's line search excepted, once per
         line-search step), so on the card this returns once the work is
         queued. Returns the chunk's record."""
+        sharded = isinstance(image, tuple)
         rows = []
         for _ in range(n):
             image, opt_state, aux = step(image, opt_state)
-            if ema is not None:
+            if ema is not None and sharded:  # per shard, one launch per op and device
+                ema = tuple(torch._foreach_add(torch._foreach_mul(ema, decay),
+                                               torch._foreach_mul(image, 1.0 - decay)))
+            elif ema is not None:
                 ema = decay * ema + (1.0 - decay) * image
             rows.append(aux)
-        snap = (image if ema is None else ema)[0].clamp(0.0, 1.0) if snapshot else None
+        snap = None
+        if snapshot:
+            src = image if ema is None else ema
+            snap = (tuple(torch._foreach_clamp_max(torch._foreach_clamp_min(
+                        [s[0] for s in src], 0.0), 1.0)) if sharded
+                    else src[0].clamp(0.0, 1.0))
         keys, loss_host = _fetch_losses(rows)
         return _PendingChunk(n=n, done_iters=done_iters + n, keys=keys, loss_host=loss_host,
                              snap=snap, image=image, ema=ema, opt_state=opt_state,
-                             event=_chunk_event(image.device))
+                             event=_chunk_event(self.device))
 
     # ---------------------------------------------------------------- misc
 
-    def _state_image(self, array) -> torch.Tensor:
-        return torch.tensor(np.ascontiguousarray(array, np.float32), device=self.device)
+    def _state_image(self, array):
+        """A checkpoint's image on the device; on a mesh, its row shards, each
+        copied from the host to its own device."""
+        array = np.ascontiguousarray(array, np.float32)
+        if self.mesh is not None:
+            return M.shard_image(array, self.mesh)
+        return torch.tensor(array, device=self.device)
+
+    def _resized(self, image, size) -> torch.Tensor:
+        """The between-scale resize; on a mesh the shards are gathered on
+        the home device first (a transient of the old scale's size)."""
+        if isinstance(image, tuple):
+            image = M.gather_rows(image, self.device)
+        return imgio.resize_image(image, size)
 
     def _init_image(self, cfg, content_s, init_image, size):
         """``init="random"`` draws from a ``torch.Generator`` seeded with

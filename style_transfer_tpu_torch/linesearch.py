@@ -30,6 +30,14 @@ skipped, the initial state never stops) and nothing else: a step of L-BFGS
 whose search takes k steps reads the device k times (:data:`host_reads`
 counts them). Each trial's autograd graph is freed by ``value_fn`` before
 the next trial, so the search holds one forward and backward at a time.
+
+On a mesh the image-sized leaves (``params``, ``updates``, ``grad``,
+``safe_grad``) are tuples of row shards, each on its own device
+(``parallel/mesh.py``); every scalar stays on the home device, the first
+shard's, and is copied to a shard's device where that shard's arithmetic
+needs it (``on``; no copy on a mesh that repeats one device), and
+:func:`vdot` adds the shards' fp32 partial dots on home in shard order.
+The host read per step is the same.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ from typing import Callable, Tuple
 import torch
 
 from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
+from style_transfer_tpu_torch.parallel import mesh as M
+from style_transfer_tpu_torch.parallel.mesh import map_image, on
 
 ValueAndGradFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
@@ -55,9 +65,30 @@ INTERVAL_THRESHOLD = 1e-5  # optax's stepsize_precision
 host_reads = LaunchCount()
 
 
-def vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``optax.tree.real(optax.tree.vdot(a, b))`` for one real fp32 leaf."""
+def vdot(a, b) -> torch.Tensor:
+    """``optax.tree.real(optax.tree.vdot(a, b))`` for one real fp32 leaf;
+    for two tuples of row shards, each shard's fp32 dot on its device,
+    added on the first shard's (the mesh's home) in shard order."""
+    if isinstance(a, tuple):
+        return M.all_reduce_to([torch.dot(x.reshape(-1), y.reshape(-1)) for x, y in zip(a, b)],
+                               a[0].device)
     return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def where(cond: torch.Tensor, a, b):
+    """``torch.where(cond, a, b)`` with a scalar ``cond``, shard by shard on
+    tuples of shards."""
+    return map_image(lambda x, y: torch.where(on(cond, x), x, y), a, b)
+
+
+def axpy(alpha: torch.Tensor, x, y):
+    """``y + alpha * x`` for a scalar ``alpha``, shard by shard on tuples."""
+    return map_image(lambda u, v: v + on(alpha, u) * u, x, y)
+
+
+def scale(alpha: torch.Tensor, x):
+    """``alpha * x`` for a scalar ``alpha``, shard by shard on tuples."""
+    return map_image(lambda u: on(alpha, u) * u, x)
 
 
 def safe_increment(count: torch.Tensor) -> torch.Tensor:
@@ -130,7 +161,7 @@ def _select(cond: torch.Tensor, a: ZoomState, b: ZoomState) -> ZoomState:
     out = {}
     for f in dataclasses.fields(ZoomState):
         x, y = getattr(a, f.name), getattr(b, f.name)
-        out[f.name] = x if x is y else torch.where(cond, x, y)
+        out[f.name] = x if x is y else where(cond, x, y)
     return ZoomState(**out)
 
 
@@ -166,7 +197,7 @@ class ZoomLinesearch:
              grad: torch.Tensor, prev_stepsize: torch.Tensor) -> ZoomState:
         """optax ``init_fn`` under ``initial_guess_strategy="keep"``: the first
         trial is ``prev_stepsize``."""
-        dev = params.device
+        dev = M.device_of(params)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         inf = torch.full((), torch.inf, dtype=torch.float32, device=dev)
         false = torch.zeros((), dtype=torch.bool, device=dev)
@@ -207,7 +238,7 @@ class ZoomLinesearch:
         safe_decrease = decrease_error <= self.tol
         safe_stepsize = torch.where(safe_decrease, new_stepsize, s.safe_stepsize)
         safe_value = torch.where(safe_decrease, new_value, s.safe_value)
-        safe_grad = torch.where(safe_decrease, new_grad, s.safe_grad)
+        safe_grad = where(safe_decrease, new_grad, s.safe_grad)
 
         set_high_to_new = (decrease_error > 0.0) | ((new_value >= prev_value) & (iter_num > 0))
         set_low_to_new = (new_slope >= 0.0) & (~set_high_to_new)
@@ -275,7 +306,7 @@ class ZoomLinesearch:
         update_safe = safe_decrease & (value_middle < s.safe_value)
         safe_stepsize = torch.where(update_safe, middle, s.safe_stepsize)
         safe_value = torch.where(update_safe, value_middle, s.safe_value)
-        safe_grad = torch.where(update_safe, grad_middle, s.safe_grad)
+        safe_grad = where(update_safe, grad_middle, s.safe_grad)
 
         done = new_error <= self.tol
 
@@ -330,7 +361,7 @@ class ZoomLinesearch:
             s,
             stepsize=torch.where(use_safe, s.safe_stepsize, s.stepsize),
             value=torch.where(use_safe, s.safe_value, s.value),
-            grad=torch.where(use_safe, s.safe_grad, s.grad),
+            grad=where(use_safe, s.safe_grad, s.grad),
         )
 
     # ------------------------------------------------------------ the loop
@@ -341,7 +372,7 @@ class ZoomLinesearch:
         search_stepsize = self._search_point(s)
         zoom_stepsize, too_small_int = self._zoom_point(s)
         stepsize = torch.where(s.interval_found, zoom_stepsize, search_stepsize)
-        value, grad = value_and_grad_fn(s.params + stepsize * s.updates)
+        value, grad = value_and_grad_fn(axpy(stepsize, s.updates, s.params))
         value = value.to(torch.float32)
         slope = vdot(grad, s.updates)
         zoomed = self._zoom_into_interval(s, stepsize, too_small_int, value, grad, slope)
@@ -386,11 +417,11 @@ class ScaleByZoomLinesearch:
         self.search = ZoomLinesearch(max_linesearch_steps, tol=tol)
 
     def init(self, params: torch.Tensor) -> ScaleByZoomLinesearchState:
-        dev = params.device
+        dev = M.device_of(params)
         return ScaleByZoomLinesearchState(
             learning_rate=torch.ones((), dtype=torch.float32, device=dev),
             value=torch.full((), torch.inf, dtype=torch.float32, device=dev),
-            grad=torch.zeros_like(params),
+            grad=map_image(torch.zeros_like, params),
             num_linesearch_steps=torch.zeros((), dtype=torch.int32, device=dev),
             decrease_error=torch.full((), torch.inf, dtype=torch.float32, device=dev),
             curvature_error=torch.full((), torch.inf, dtype=torch.float32, device=dev),
@@ -410,4 +441,4 @@ class ScaleByZoomLinesearch:
             num_linesearch_steps=s.count, decrease_error=s.decrease_error,
             curvature_error=s.curvature_error,
         )
-        return s.stepsize * updates, new_state
+        return scale(s.stepsize, updates), new_state

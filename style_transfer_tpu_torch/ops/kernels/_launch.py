@@ -378,8 +378,10 @@ def _require_cotangent(ct: torch.Tensor) -> None:
         raise ValueError("the cotangent must be a 0-d fp32 CUDA tensor (see cotangent())")
 
 
-def tv(x2d: torch.Tensor, c: int, *, count: LaunchCount) -> torch.Tensor:
-    """The 0-d fp32 TV mean of an (H, W*C) fp32 image, one launch."""
+def tv(x2d: torch.Tensor, c: int, *, count: LaunchCount,
+       numel: Optional[float] = None) -> torch.Tensor:
+    """The 0-d fp32 TV mean of an (H, W*C) fp32 image, one launch: the sum
+    divided by ``numel`` (default H*W*C; 1 gives the sum itself)."""
     h, wc = x2d.shape
     _require(x2d, "x", torch.float32, (h, wc))
     vec, chunks, groups = tv_grid(h, wc, c)
@@ -387,22 +389,25 @@ def tv(x2d: torch.Tensor, c: int, *, count: LaunchCount) -> torch.Tensor:
     out = torch.empty((), dtype=torch.float32, device=x2d.device)
     lib = library()
     err = lib.st_tv(_ptr(x2d), _ptr(partial), _ptr(counter), _ptr(out), h, wc, c, vec,
-                    float(h * wc), _stream())
+                    float(h * wc if numel is None else numel), _stream())
     _check_launch(lib, err, "tv")
     count.n += 1
     return out
 
 
-def tv_grad(x2d: torch.Tensor, c: int, ct: torch.Tensor, *, count: LaunchCount) -> torch.Tensor:
+def tv_grad(x2d: torch.Tensor, c: int, ct: torch.Tensor, *, count: LaunchCount,
+            numel: Optional[float] = None) -> torch.Tensor:
     """The TV gradient of an (H, W*C) fp32 image (the 5-point stencil) times
-    ``ct / numel``, ``ct`` from :func:`cotangent`, one launch."""
+    ``ct / numel`` (default H*W*C), ``ct`` from :func:`cotangent`, one
+    launch."""
     h, wc = x2d.shape
     _require(x2d, "x", torch.float32, (h, wc))
     _require_cotangent(ct)
     vec, _, _ = tv_grid(h, wc, c)
     grad = torch.empty_like(x2d)
     lib = library()
-    err = lib.st_tv_grad(_ptr(x2d), _ptr(ct), _ptr(grad), h, wc, c, vec, float(h * wc), _stream())
+    err = lib.st_tv_grad(_ptr(x2d), _ptr(ct), _ptr(grad), h, wc, c, vec,
+                         float(h * wc if numel is None else numel), _stream())
     _check_launch(lib, err, "tv_grad")
     count.n += 1
     return grad

@@ -39,9 +39,13 @@ hooks of ``ops.losses.objective_terms`` (``content_loss_fn``,
 ``style_loss_fn``) that ``api.StyleTransfer._loss_fns`` does not pass by
 itself (PERF.md has their times in the step).
 
+The mesh form ``make_sharded_tv_loss`` runs the TV kernels per shard with
+the divisor 1 (``tv_sse``) and adds the boundary rows' differences in plain
+torch.
+
 Left out: the 128-lane alignment gate of the TPU dispatch, the 8-row halo
-blocks, the streamed row tiles (``_tile_rows``) and the mesh form
-``make_sharded_tv_loss``.
+blocks and the streamed row tiles (``_tile_rows``); the mesh form's gate
+(H divisible by the device count): shards are cut by ``mesh.row_bounds``.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import torch
 from style_transfer_tpu_torch.ops import losses
 from style_transfer_tpu_torch.ops.kernels import _launch
 from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
+from style_transfer_tpu_torch.parallel import mesh as M
 
 #: Kernel launches made by the TV wrapper, forward and backward.
 launches = LaunchCount()
@@ -106,32 +111,85 @@ def tv_backward_plain(image, ct):
 
 
 class TVFunction(torch.autograd.Function):
+    """The TV kernels: ``apply(image, numel)`` is the sum of the squared
+    forward differences divided by ``numel`` (None: the image's element
+    count, the mean; 1.0: the sum itself), one launch each way."""
+
     @staticmethod
-    def forward(ctx, image):
+    def forward(ctx, image, numel=None):
         n, h, w, c = image.shape
         if n != 1:
             raise ValueError("fused tv_loss expects a single NHWC image (N=1)")
         x2d = image.to(torch.float32).reshape(h, w * c).contiguous()
         ctx.save_for_backward(x2d)
         ctx.image = (image.shape, image.dtype)
-        return _launch.tv(x2d, c, count=launches)
+        ctx.numel = numel
+        return _launch.tv(x2d, c, count=launches, numel=numel)
 
     @staticmethod
     def backward(ctx, ct):
         (x2d,) = ctx.saved_tensors
         shape, dtype = ctx.image
-        grad = _launch.tv_grad(x2d, shape[3], _launch.cotangent(ct, x2d.device), count=launches)
-        return grad.view(shape).to(dtype)
+        grad = _launch.tv_grad(x2d, shape[3], _launch.cotangent(ct, x2d.device), count=launches,
+                               numel=ctx.numel)
+        return grad.view(shape).to(dtype), None
 
 
 def tv_loss(image):
     """Drop-in for :func:`ops.losses.tv_loss`: the CUDA kernels for a CUDA
     tensor, the plain version for a CPU tensor."""
     if image.device.type == "cuda":
-        return TVFunction.apply(image)
+        return TVFunction.apply(image, None)
     if image.device.type == "cpu":
         return tv_loss_plain(image)
     raise ValueError(f"tv_loss runs on CUDA or CPU tensors, got device {image.device}")
+
+
+def tv_sse(image):
+    """The TV sum (:func:`ops.losses.tv_sse`): the CUDA kernels with the
+    divisor 1 for a CUDA tensor, the plain version for a CPU tensor."""
+    if image.device.type == "cuda":
+        return TVFunction.apply(image, 1.0)
+    if image.device.type == "cpu":
+        return losses.tv_sse(image)
+    raise ValueError(f"tv_sse runs on CUDA or CPU tensors, got device {image.device}")
+
+
+def make_sharded_tv_loss(mesh, *, fused: bool = True):
+    """:func:`tv_loss` on a 1-D spatial mesh (JAX ``make_sharded_tv_loss``,
+    ``epilogue.py:380``): ``f(shards)`` takes an NHWC image as the list of
+    its H shards, shard ``i`` on its own device, and returns the 0-d loss
+    on ``mesh.home``. Each shard runs the TV kernels on its own rows as a
+    whole image (:func:`tv_sse`: one launch forward, one backward; on a CPU
+    shard the plain version), which leaves out the one forward difference
+    across each boundary; that one is added in plain torch from a one-row
+    halo, the next shard's first row copied to this shard's device, as the
+    JAX body adds it from its ``ppermute`` rows (``:356-376``). The partial
+    sums are added on the home device in shard order
+    (``parallel.mesh.all_reduce_to``) and divided by the global element
+    count. Autograd keeps the gradient per shard: each shard's kernel
+    gradient, plus the boundary row's term on the two shards it joins. One
+    shard is :func:`tv_loss` itself. ``fused=False`` takes the plain
+    ``ops.losses`` sums on every device (the plain path's TV)."""
+    home = mesh.home
+    one = tv_loss if fused else losses.tv_loss
+    part = tv_sse if fused else losses.tv_sse
+
+    def sharded_tv_loss(shards):
+        shards = list(shards)
+        if len(shards) == 1:
+            return one(shards[0])
+        parts = []
+        for i, x in enumerate(shards):
+            sse = part(x)
+            if i + 1 < len(shards):
+                down = shards[i + 1][:, :1].to(x.device, non_blocking=True)
+                dh = down.to(torch.float32) - x[:, -1:].to(torch.float32)
+                sse = sse + torch.sum(dh * dh)
+            parts.append(sse)
+        return M.all_reduce_to(parts, home) / float(sum(x.numel() for x in shards))
+
+    return sharded_tv_loss
 
 
 def content_loss_plain(feat, target):

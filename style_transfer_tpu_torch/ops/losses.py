@@ -42,12 +42,18 @@ def style_loss(gram: torch.Tensor, target_gram: torch.Tensor) -> torch.Tensor:
     return torch.mean(d * d)
 
 
-def tv_loss(image: torch.Tensor) -> torch.Tensor:
-    """Isotropic squared total variation of an NHWC image, mean-normalized."""
+def tv_sse(image: torch.Tensor) -> torch.Tensor:
+    """The sum of the squared forward differences of an NHWC image, fp32:
+    :func:`tv_loss` before its division (a mesh shard's part of it)."""
     x = image.to(torch.float32)
     dh = x[:, 1:, :, :] - x[:, :-1, :, :]
     dw = x[:, :, 1:, :] - x[:, :, :-1, :]
-    return (torch.sum(dh * dh) + torch.sum(dw * dw)) / float(x.numel())
+    return torch.sum(dh * dh) + torch.sum(dw * dw)
+
+
+def tv_loss(image: torch.Tensor) -> torch.Tensor:
+    """Isotropic squared total variation of an NHWC image, mean-normalized."""
+    return tv_sse(image) / float(image.numel())
 
 
 def blend_grams(grams: Sequence[torch.Tensor], weights: Sequence[float]) -> torch.Tensor:
@@ -92,12 +98,18 @@ def objective_terms(
     activations never materialize) are those of the JAX ``objective_terms``:
     ``gram_fn`` takes ``ops.kernels.gram.gram_matrix`` / ``pallas_gram``, and
     ``content_loss_fn``, ``style_loss_fn``, ``tv_loss_fn`` the fused losses of
-    ``ops.kernels.epilogue``."""
+    ``ops.kernels.epilogue``. On a mesh ``image`` may be the tuple of its row
+    shards, for a ``tv_loss_fn`` that takes them
+    (``ops.kernels.epilogue.make_sharded_tv_loss``); the terms are then
+    summed on the first shard's device."""
     content_loss_fn = content_loss_fn or content_loss
     style_loss_fn = style_loss_fn or style_loss
     tv_loss_fn = tv_loss_fn or tv_loss
     gram_overrides = gram_overrides or {}
-    zero = torch.zeros((), dtype=torch.float32, device=image.device)
+    # under a mesh ``image`` is the tuple of its row shards, which only the
+    # TV hook reads; the terms are summed on the home device (its first shard's)
+    home = (image[0] if isinstance(image, (tuple, list)) else image).device
+    zero = torch.zeros((), dtype=torch.float32, device=home)
     c_loss = zero
     for layer, w in content_layer_weights.items():
         c_loss = c_loss + w * content_loss_fn(feats[layer], content_targets[layer])

@@ -22,6 +22,17 @@ earlier step stays valid.
 ``make_chunk_fn`` is a Python loop over steps (the JAX ``lax.scan``); the
 host reads the stacked per-step losses once per chunk, and an L-BFGS step
 adds one host read per line-search step (``linesearch.py``).
+
+On a mesh (``parallel/mesh.py``) the image is the tuple of its row shards,
+each on its own device, as in the JAX package, where the state inherits the
+image's sharding: the gradient, Adam's ``mu`` / ``nu`` and every
+image-sized L-BFGS and line-search leaf are tuples of shards of the same
+rows (the rings ``(m, 1, rows, W, 3)`` per shard), and the scalars (counts,
+weights, step sizes) stay on the home device, the first shard's. Adam runs
+on the shards with ``torch._foreach_*`` (one launch per op for the shards
+of one device); each L-BFGS ``vdot`` is the shards' fp32 partials added on
+home in shard order, and the ring index stays on the device. A single
+tensor takes the same ops as before.
 """
 
 from __future__ import annotations
@@ -34,9 +45,13 @@ import torch
 from style_transfer_tpu_torch.linesearch import (
     ScaleByZoomLinesearch,
     ScaleByZoomLinesearchState,
+    axpy,
     safe_increment,
+    scale,
     vdot,
 )
+from style_transfer_tpu_torch.parallel import mesh as M
+from style_transfer_tpu_torch.parallel.mesh import map_image, on
 
 ObjectiveFn = Callable[[torch.Tensor], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 # step :: (image, opt_state) -> (image, opt_state, aux-losses dict)
@@ -117,17 +132,20 @@ class AdamState:
 
 
 class Adam:
-    """``optax.adam`` on one tensor, state in :class:`AdamState`."""
+    """``optax.adam`` on one tensor or on a tuple of row shards, state in
+    :class:`AdamState`."""
 
     def __init__(self, lr: float, b1: float, b2: float, eps: float):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
 
-    def init(self, image: torch.Tensor) -> AdamState:
-        return AdamState(0, torch.zeros_like(image), torch.zeros_like(image))
+    def init(self, image) -> AdamState:
+        return AdamState(0, map_image(torch.zeros_like, image), map_image(torch.zeros_like, image))
 
     @torch.no_grad()
-    def update(self, grad: torch.Tensor, state: AdamState, image: torch.Tensor):
+    def update(self, grad, state: AdamState, image):
         """Returns (new image, new state); inputs are not modified."""
+        if isinstance(grad, tuple):
+            return self._update_shards(grad, state, image)
         mu = (1.0 - self.b1) * grad + self.b1 * state.mu
         nu = (1.0 - self.b2) * (grad * grad) + self.b2 * state.nu
         count = state.count + 1
@@ -135,6 +153,18 @@ class Adam:
         nu_hat = nu / (1.0 - self.b2 ** count)
         step = -self.lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
         return image + step, AdamState(count, mu, nu)
+
+    def _update_shards(self, grad, state: AdamState, image):
+        """:meth:`update` on tuples of shards: the same ops in the same order,
+        each a ``torch._foreach_*`` over the shards."""
+        mul, add, div = torch._foreach_mul, torch._foreach_add, torch._foreach_div
+        mu = add(mul(grad, 1.0 - self.b1), mul(state.mu, self.b1))
+        nu = add(mul(mul(grad, grad), 1.0 - self.b2), mul(state.nu, self.b2))
+        count = state.count + 1
+        mu_hat = div(mu, 1.0 - self.b1 ** count)
+        nu_hat = div(nu, 1.0 - self.b2 ** count)
+        step = mul(div(mu_hat, add(torch._foreach_sqrt(nu_hat), self.eps)), -self.lr)
+        return tuple(add(image, step)), AdamState(count, tuple(mu), tuple(nu))
 
 
 @dataclasses.dataclass
@@ -177,14 +207,15 @@ class LBFGS:
         self.memory_size = memory_size
         self.linesearch = ScaleByZoomLinesearch(max_linesearch_steps, tol=linesearch_tol)
 
-    def init(self, image: torch.Tensor) -> LBFGSState:
-        dev, m = image.device, self.memory_size
-        stacked = torch.zeros((m, *image.shape), dtype=image.dtype, device=dev)
+    def init(self, image) -> LBFGSState:
+        dev, m = M.device_of(image), self.memory_size
+        stacked = map_image(lambda x: torch.zeros((m, *x.shape), dtype=x.dtype, device=x.device),
+                            image)
         return LBFGSState(
             ScaleByLBFGSState(
                 count=torch.zeros((), dtype=torch.int32, device=dev),
-                params=torch.zeros_like(image),
-                updates=torch.zeros_like(image),
+                params=map_image(torch.zeros_like, image),
+                updates=map_image(torch.zeros_like, image),
                 diff_params_memory=stacked,
                 diff_updates_memory=stacked,
                 weights_memory=torch.zeros(m, dtype=torch.float32, device=dev),
@@ -193,11 +224,11 @@ class LBFGS:
         )
 
     @torch.no_grad()
-    def _scale_by_lbfgs(self, updates: torch.Tensor, state: ScaleByLBFGSState,
-                        params: torch.Tensor):
+    def _scale_by_lbfgs(self, updates, state: ScaleByLBFGSState, params):
         """optax ``scale_by_lbfgs`` ``update_fn``: refresh the memory with the
         newest differences, then precondition ``updates``. The ring index
-        stays on the device (``index_select`` / ``index_copy``)."""
+        stays on the device (``index_select`` / ``index_copy``); on a mesh
+        each shard's ring takes it on the shard's device."""
         m = self.memory_size
         count = state.count
         memory_idx = torch.remainder(count, m)
@@ -205,17 +236,19 @@ class LBFGS:
         started = count > 0
 
         # 1. the memory, given fresh params and gradient (zero at count 0)
-        diff_params = params - state.params
-        diff_updates = updates - state.updates
+        diff_params = map_image(torch.sub, params, state.params)
+        diff_updates = map_image(torch.sub, updates, state.updates)
         vdot_diff = vdot(diff_updates, diff_params)
         weight = torch.where(vdot_diff == 0.0, 0.0, 1.0 / vdot_diff)
-        diff_params = torch.where(started, diff_params, 0.0)
-        diff_updates = torch.where(started, diff_updates, 0.0)
+        diff_params = map_image(lambda d: torch.where(on(started, d), d, 0.0), diff_params)
+        diff_updates = map_image(lambda d: torch.where(on(started, d), d, 0.0), diff_updates)
         weight = torch.where(started, weight, 0.0)
-        diff_params_memory = torch.index_copy(state.diff_params_memory, 0, prev_memory_idx,
-                                              diff_params[None])
-        diff_updates_memory = torch.index_copy(state.diff_updates_memory, 0, prev_memory_idx,
-                                               diff_updates[None])
+
+        def put(memory, d):
+            return torch.index_copy(memory, 0, on(prev_memory_idx, memory), d[None])
+
+        diff_params_memory = map_image(put, state.diff_params_memory, diff_params)
+        diff_updates_memory = map_image(put, state.diff_updates_memory, diff_updates)
         weights_memory = torch.index_copy(state.weights_memory, 0, prev_memory_idx, weight[None])
 
         # 2. gamma_k, the scale of the identity; at the first step a capped
@@ -230,32 +263,34 @@ class LBFGS:
 
         # 3. the two-loop recursion, oldest to newest ring slot
         indices = torch.remainder(
-            memory_idx + torch.arange(m, dtype=torch.int32, device=params.device), m).long()
+            memory_idx + torch.arange(m, dtype=torch.int32, device=count.device), m).long()
+
+        def pick(memory, idx):
+            return map_image(lambda mem: mem.index_select(0, on(idx, mem))[0], memory)
+
         vec, alphas = updates, [None] * m
         for j in reversed(range(m)):
             idx = indices[j:j + 1]
-            dwi = diff_params_memory.index_select(0, idx)[0]
-            dui = diff_updates_memory.index_select(0, idx)[0]
+            dwi, dui = pick(diff_params_memory, idx), pick(diff_updates_memory, idx)
             alphas[j] = weights_memory.index_select(0, idx)[0] * vdot(dwi, vec)
-            vec = vec + (-alphas[j]) * dui
-        vec = identity_scale * vec
+            vec = axpy(-alphas[j], dui, vec)
+        vec = scale(identity_scale, vec)
         for j in range(m):
             idx = indices[j:j + 1]
-            dwi = diff_params_memory.index_select(0, idx)[0]
-            dui = diff_updates_memory.index_select(0, idx)[0]
+            dwi, dui = pick(diff_params_memory, idx), pick(diff_updates_memory, idx)
             beta = weights_memory.index_select(0, idx)[0] * vdot(dui, vec)
-            vec = vec + (alphas[j] - beta) * dwi
+            vec = axpy(alphas[j] - beta, dwi, vec)
 
         return vec, ScaleByLBFGSState(safe_increment(count), params, updates, diff_params_memory,
                                       diff_updates_memory, weights_memory)
 
     @torch.no_grad()
-    def update(self, grad: torch.Tensor, state: LBFGSState, image: torch.Tensor, *,
-               value: torch.Tensor, value_fn):
+    def update(self, grad, state: LBFGSState, image, *, value: torch.Tensor, value_fn):
         """Returns ``(updates, new state)``; inputs are not modified."""
         direction, lbfgs_state = self._scale_by_lbfgs(grad, state.lbfgs, image)
+        descent = map_image(lambda d: -1.0 * d, direction)
         updates, ls_state = self.linesearch.update(
-            -1.0 * direction, state.linesearch, image, value=value, grad=grad,
+            descent, state.linesearch, image, value=value, grad=grad,
             value_fn=value_fn,
         )
         return updates, LBFGSState(lbfgs_state, ls_state)
@@ -271,13 +306,14 @@ def make_step_fn(objective: ObjectiveFn, spec: OptimizerSpec) -> Tuple[StepFn, A
 
     def value_and_grad(image):
         with torch.enable_grad():
-            x = image.detach().requires_grad_(True)
+            x = map_image(lambda t: t.detach().requires_grad_(True), image)
             loss, aux = objective(x)
-            (grad,) = torch.autograd.grad(loss, x)
+            grad = torch.autograd.grad(loss, x if isinstance(x, tuple) else (x,))
         # autograd hands back the gradient in the layout of the convolutions
         # (channels first under an NHWC view); contiguous, every state tensor
         # has one layout, so a state restored from disk sums as the live one
-        return loss.detach(), grad.contiguous(), aux
+        grad = tuple(g.contiguous() for g in grad)
+        return loss.detach(), (grad if isinstance(x, tuple) else grad[0]), aux
 
     def value_fn(image):
         loss, grad, _ = value_and_grad(image)
@@ -287,7 +323,7 @@ def make_step_fn(objective: ObjectiveFn, spec: OptimizerSpec) -> Tuple[StepFn, A
         loss, grad, aux = value_and_grad(image)
         if spec.needs_value_fn:
             updates, state = optimizer.update(grad, state, image, value=loss, value_fn=value_fn)
-            image = image + updates
+            image = map_image(torch.add, image, updates)
         else:
             image, state = optimizer.update(grad, state, image)
         return image, state, {k: v.detach() for k, v in aux.items()}

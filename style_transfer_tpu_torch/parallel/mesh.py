@@ -15,19 +15,36 @@ and reductions as a mesh of eight cards would, with only the copies staying
 on one device. On the CPU, a mesh of N CPU shards plays the part of the
 JAX tests' forced CPU devices.
 
-What is sharded: every VGG activation and all of the VGG's forward and
-backward work (``ops/kernels``' ``make_sharded_*`` wrappers and
-``models.vgg.extract_features_sharded``). What is not: the image, its
-gradient, the optimizer state, the EMA, the pipelined chunk records, the TV
-loss and the scalar losses stay on the mesh's first device, the *home*
-device. The objective moves the preprocessed image onto the shards
-(:func:`scatter_rows`) and brings the Grams and content SSEs back
-(:func:`all_reduce_to`); autograd carries the gradient home. This departs
-from the reference, which shards the image and Adam's moments too: the port
-shards what dominates memory (the chain's stored activations, hundreds of
-MiB per megapixel, against 12 bytes per pixel for each image-sized fp32
-buffer), and the optimizer state can follow if the home device's share
-ever binds.
+What is sharded, as in the reference: every VGG activation and all of the
+VGG's forward and backward work (``ops/kernels``' ``make_sharded_*``
+wrappers and ``models.vgg.extract_features_sharded``), and the optimized
+state. Under ``StyleTransfer(mesh=...)`` the image is a tuple of row shards
+(:func:`shard_image`), shard ``i`` on ``devices[i]``; so are its gradient,
+Adam's ``mu`` / ``nu``, the EMA, every image-sized L-BFGS and line-search
+leaf (the rings as ``(m, 1, rows, W, 3)`` per shard), the display image
+and every pipelined chunk record's copies of them. Each shard is
+preprocessed on its own device, TV runs per shard with one-row halos
+(``ops.kernels.epilogue.make_sharded_tv_loss``), Adam and the EMA are
+``torch._foreach_*`` ops over the shards, and each ``vdot`` of L-BFGS is
+the shards' fp32 partials added on home in shard order
+(:func:`all_reduce_to`, which also sums the Grams and content SSEs). The
+*home* device, the mesh's first, keeps shard 0 and the scalars: the loss
+terms, the Grams, L-BFGS's and the line search's counts, weights and step
+sizes. :func:`map_image` runs an op on an image or shard by shard,
+:func:`on` puts a home scalar beside a shard.
+
+A full-size image-sized tensor lies on the home device only as a transient
+before a scale's first chunk, in fp32 RGB at 12 bytes per pixel of the
+scale: the content resized to the scale for its capture and, at the first
+scale, the initial image (the same tensor for ``init="content"``) and the
+EMA's copy of it, at most 36 B/px together; between scales, the gathered
+previous image (3 B/px of the new scale at factor 2) and its resize, twice
+with the EMA, with the resized content, at most 39 B/px (beside the
+resize's own intermediates). Each is cut into shards (:func:`shard_rows`,
+copies of their own) and freed. A resume makes none: each shard is copied
+from the checkpoint's host array to its device (:func:`shard_like` for the
+optimizer's leaves). The display image, the resumable state and the result
+are gathered by rows on the host.
 
 Shard boundaries (:func:`row_bounds`) lie at multiples of
 :data:`ROW_GRAIN` image rows, so every shard starts on an even row at each
@@ -46,6 +63,7 @@ import dataclasses
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 SPATIAL_AXIS = "space"
@@ -226,10 +244,79 @@ def scatter_rows(x: torch.Tensor, bounds: Sequence[Tuple[int, int]], mesh: Mesh
 
 
 def gather_rows(shards: Sequence[torch.Tensor], device) -> torch.Tensor:
-    """The shards concatenated along H on ``device`` (differentiable). Not
-    used on the objective's path, which never gathers an activation."""
+    """The shards concatenated along their row axis (:func:`row_axis`) on
+    ``device`` (differentiable). Not used on the objective's path, which
+    never gathers an activation."""
     device = canonical_device(device)
-    return torch.cat([s.to(device, non_blocking=True) for s in shards], dim=1)
+    return torch.cat([s.to(device, non_blocking=True) for s in shards], dim=row_axis(shards[0]))
+
+
+# ------------------------------------------------------- the sharded image
+
+
+def row_axis(x) -> int:
+    """The row (H) axis of an image-sized tensor or array, its third from
+    last: 1 for an NHWC image, 2 for an L-BFGS ring ``(m, 1, H, W, C)``, 0
+    for a display image ``(H, W, C)``."""
+    return len(x.shape) - 3
+
+
+def shard_rows(x, rows: Sequence[int], devices: Sequence) -> Tuple[torch.Tensor, ...]:
+    """``x`` (a tensor, or a numpy array from the host) cut along its row
+    axis into consecutive pieces of ``rows[i]`` rows, piece ``i`` a
+    contiguous copy of its own on ``devices[i]``: no piece is a view of
+    ``x``, so ``x`` can be freed once this returns. Not differentiable."""
+    ax = row_axis(x)
+    if sum(rows) != x.shape[ax]:
+        raise ValueError(f"shards of {list(rows)} rows do not cut {x.shape[ax]} rows")
+    out, lo = [], 0
+    for n, dev in zip(rows, devices):
+        piece = x[(slice(None),) * ax + (slice(lo, lo + n),)]
+        if isinstance(piece, np.ndarray):
+            out.append(torch.tensor(np.ascontiguousarray(piece), device=dev))
+        else:
+            out.append(piece.detach().to(dev, memory_format=torch.contiguous_format,
+                                         copy=True))
+        lo += n
+    return tuple(out)
+
+
+def shard_image(image, mesh: Optional[Mesh]):
+    """An NHWC image (tensor or numpy array) as the tuple of its row shards
+    at :func:`row_bounds` over ``mesh``, shard ``i`` on ``mesh.devices[i]``
+    (:func:`shard_rows`); the image itself without a mesh. The optimize
+    loop keeps its image, gradient, optimizer state and EMA so."""
+    if mesh is None:
+        return image
+    bounds = row_bounds(image.shape[1], mesh.size)
+    return shard_rows(image, [hi - lo for lo, hi in bounds], mesh.devices)
+
+
+def shard_like(x, template: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """``x`` cut into the rows and onto the devices of ``template``'s
+    shards, in their dtype (a checkpoint's leaf onto a fresh state's)."""
+    ax = row_axis(template[0])
+    pieces = shard_rows(x, [int(t.shape[ax]) for t in template], [t.device for t in template])
+    return tuple(p.to(t.dtype) for p, t in zip(pieces, template))
+
+
+def device_of(image) -> torch.device:
+    """The device of an image, or of its first shard (the mesh's home)."""
+    return (image[0] if isinstance(image, (tuple, list)) else image).device
+
+
+def map_image(fn, *images):
+    """``fn`` of the images, or shard by shard (the i-th shard of each) where
+    they are tuples of shards; a tuple comes back for tuples."""
+    if isinstance(images[0], tuple):
+        return tuple(fn(*parts) for parts in zip(*images))
+    return fn(*images)
+
+
+def on(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The (home device's) scalar ``t`` on ``x``'s device; ``t`` itself
+    where it lies there already."""
+    return t.to(x.device, non_blocking=True)
 
 
 class _Halo(torch.autograd.Function):

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from style_transfer_tpu_torch.optim import replace_leaves, state_leaves
+from style_transfer_tpu_torch.parallel import mesh as M
 from style_transfer_tpu_torch.utils.progress import ProgressEvent
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -30,28 +31,39 @@ _LIST_RE = re.compile(r"^(.+)\.(\d+)$")
 STATE_FILE = "state.npz"
 
 
+def _is_array(leaf) -> bool:
+    """A tensor leaf, or a mesh's tuple of row shards of one."""
+    return isinstance(leaf, (torch.Tensor, tuple))
+
+
 def _leaf_array(leaf) -> np.ndarray:
-    """A state leaf as numpy: tensors as they are, host integers as int32."""
+    """A state leaf as numpy: tensors as they are, row shards gathered by
+    rows, host integers as int32."""
+    if isinstance(leaf, tuple):
+        leaf = M.gather_rows([s.detach() for s in leaf], "cpu")
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf, np.int32)
 
 
 def flatten_opt_state(opt_state, fetch=None) -> List[np.ndarray]:
-    """The optimizer state's leaves, in optax's order, as numpy arrays.
-    ``fetch`` copies a list of tensors to numpy arrays (the optimize loop's
-    copies on a side stream); by default each leaf's ``.cpu()``."""
+    """The optimizer state's leaves, in optax's order, as numpy arrays; on
+    a mesh, an image-sized leaf's row shards gathered along its row axis, so
+    the leaves have the unsharded shapes. ``fetch`` copies a list of tensors
+    (or tuples of shards) to numpy arrays (the optimize loop's copies on a
+    side stream); by default each leaf's ``.cpu()``."""
     leaves = state_leaves(opt_state)
     if fetch is None:
         return [_leaf_array(l) for l in leaves]
-    arrays = iter(fetch([l for l in leaves if isinstance(l, torch.Tensor)]))
-    return [next(arrays) if isinstance(l, torch.Tensor) else _leaf_array(l) for l in leaves]
+    arrays = iter(fetch([l for l in leaves if _is_array(l)]))
+    return [next(arrays) if _is_array(l) else _leaf_array(l) for l in leaves]
 
 
 def restore_opt_state(template, leaves: List[np.ndarray]):
     """Graft saved leaves onto a freshly initialized optimizer state: each
     is cast to the template leaf's dtype, checked against its shape and put
-    on its device."""
+    on its device; where the template leaf is a mesh's tuple of row shards,
+    the saved (unsharded) leaf is cut into its shards' rows and devices."""
     t_leaves = state_leaves(template)
     if len(t_leaves) != len(leaves):
         raise ValueError(
@@ -60,6 +72,17 @@ def restore_opt_state(template, leaves: List[np.ndarray]):
         )
     out = []
     for l, t in zip(leaves, t_leaves):
+        if isinstance(t, tuple):
+            ax = M.row_axis(t[0])
+            shape = list(t[0].shape)
+            shape[ax] = sum(int(s.shape[ax]) for s in t)
+            if np.shape(l) != tuple(shape):
+                raise ValueError(
+                    f"checkpoint leaf shape {np.shape(l)} != expected {tuple(shape)} — "
+                    "resuming at a different resolution/config is not supported"
+                )
+            out.append(M.shard_like(np.asarray(l), t))
+            continue
         is_tensor = isinstance(t, torch.Tensor)
         dtype = torch.empty((), dtype=t.dtype).numpy().dtype if is_tensor else np.int32
         cast = np.asarray(l).astype(dtype)

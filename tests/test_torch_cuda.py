@@ -565,3 +565,25 @@ def test_cuda_bench_quick_record(cuda_device, capsys):
         rec["its_per_sec_512"] * rec["model_tflops_per_it_512"])
     assert 0 < rec["mfu_512"] < 100 and 0 < rec["device_busy_512"] <= 1
     assert rec["peak_mib_512"] > 0 and rec["its_per_sec_512_event"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_tv_matches_unsharded(cuda_device):
+    """``make_sharded_tv_loss`` on three shards of the one card (uneven
+    rows) against the unsharded TV kernel: value and gradient within
+    ``TOL_TV``, one launch each way per shard."""
+    from style_transfer_tpu_torch.parallel import mesh as M
+
+    img = torch.from_numpy(np.random.RandomState(2).rand(1, 135, 96, 3).astype(np.float32))
+    img = img.to(cuda_device)
+    mesh = M.make_mesh(devices=[cuda_device] * 3)
+    shards = [x.requires_grad_(True) for x in M.shard_image(img, mesh)]
+    before = EP.launches.n
+    value = EP.make_sharded_tv_loss(mesh)(shards)
+    grad = torch.cat(torch.autograd.grad(value, shards), 1)
+    assert EP.launches.n - before == 6
+    x = img.clone().requires_grad_(True)
+    ref = EP.tv_loss(x)
+    (ref_grad,) = torch.autograd.grad(ref, x)
+    assert abs(float(value) - float(ref)) <= T.TOL_TV * abs(float(ref))
+    assert float((grad - ref_grad).norm() / ref_grad.norm()) <= T.TOL_TV

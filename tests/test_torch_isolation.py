@@ -128,6 +128,7 @@ WRAPPERS = [
     (CP.pair_pool, 8, 4, CP.launches),
     (CG.conv_gram, 8, 2, CG.launches),
     (EP.tv_loss, 3, 0, EP.launches),
+    (EP.tv_sse, 3, 0, EP.launches),
     (CS.single_gram, 64, 2, CS.launches),
     (CS.single_pool, 8, 2, CS.launches),
     (CS.gram_tail, 64, 2, CS.gram_tail_launches),

@@ -130,8 +130,6 @@ NOT_PORTED = {
     ("ops/losses.py", "FLAT_PAD_LIMIT"): "the TPU compile ceiling of the flat Gram operand",
     ("ops/pallas/block1_packed.py", "fits_scoped_vmem"): "the TPU's 16 MiB scoped-VMEM gate",
     ("ops/pallas/gram.py", "TILE_M"): "the TPU kernel's row tile in VMEM",
-    ("ops/pallas/epilogue.py", "make_sharded_tv_loss"): "the image is not sharded: TV stays "
-                                                        "on the mesh's home device",
     ("ops/pallas/vmem.py", "SCOPED_LIMIT"): "the TPU's scoped-VMEM budget",
     ("ops/pallas/vmem.py", "SUBLANE"): "the TPU's 16-row sublane tile",
     ("ops/pallas/vmem.py", "SINGLE_EFF_LIMIT"): "a scoped-VMEM limit of the singles",
@@ -149,7 +147,6 @@ NOT_PORTED = {
     ("parallel/mesh.py", "image_sharding"): "a NamedSharding helper",
     ("parallel/mesh.py", "image_spec"): "a PartitionSpec helper",
     ("parallel/mesh.py", "replicated"): "a NamedSharding helper: the port has replicate",
-    ("parallel/mesh.py", "shard_image"): "a NamedSharding helper",
     ("schedule.py", "FUSED_GRIDS_W"): "the TPU kernels' sublane grid the ladder snaps to",
     ("schedule.py", "FUSED_GRID_H"): "the same grid",
     ("schedule.py", "SNAP_TOLERANCE"): "the same grid's snapping",
