@@ -326,6 +326,15 @@ def _wall_ms(torch, fn, reps: int, warmup: int = 3):
     return times
 
 
+def _device_events(torch, prof):
+    """The card's events of a profiler trace (kernels, copies, fills),
+    without the device side of a ``record_function`` range: the port's spans
+    (``style_transfer_tpu_torch.trace``) enter one each while profiled, and
+    its annotation spans the kernels under it."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _device_profile(torch, fn, reps: int = 5, whole: bool = False):
     """``(ms, launches, names)`` per call of ``fn``: the summed durations of
     the kernels (and copies) the profiler saw on the card, without host
@@ -345,7 +354,7 @@ def _device_profile(torch, fn, reps: int = 5, whole: bool = False):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = _device_events(torch, prof)
         us = sum(e.time_range.elapsed_us() for e in events)
         if us > 0:
             last = us / reps / 1e3, len(events) / reps, sorted({e.name for e in events})
@@ -602,12 +611,11 @@ def block1_rates(torch, params):
                     fn()
                 torch.cuda.synchronize()
             by = {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    key = next((k for k in ("block1_fwd_kernel", "block1_bwd_kernel",
-                                            "block1_col2im_kernel", "block1_gram_reduce_kernel")
-                                if k in e.name), "other")
-                    by[key] = by.get(key, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+            for e in _device_events(torch, prof):
+                key = next((k for k in ("block1_fwd_kernel", "block1_bwd_kernel",
+                                        "block1_col2im_kernel", "block1_gram_reduce_kernel")
+                            if k in e.name), "other")
+                by[key] = by.get(key, 0.0) + e.time_range.elapsed_us() / reps / 1e3
             if by:
                 return by
         raise RuntimeError("the profiler recorded no device time on the card in three traces")
@@ -1467,11 +1475,10 @@ def step_profile(torch, params, mean, std):
                     one_step()
                 torch.cuda.synchronize()
             by, launches = {}, {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    g = group(e.name)
-                    by[g] = by.get(g, 0.0) + e.time_range.elapsed_us() / 5 / 1e3
-                    launches[g] = launches.get(g, 0) + 1 / 5
+            for e in _device_events(torch, prof):
+                g = group(e.name)
+                by[g] = by.get(g, 0.0) + e.time_range.elapsed_us() / 5 / 1e3
+                launches[g] = launches.get(g, 0) + 1 / 5
             if by:
                 break
         if not by:
@@ -2500,8 +2507,7 @@ def _chunk_gaps(torch, prof, chunks):
     chunk's device span and busy time on the compute stream, the idle time
     between the last kernel of one chunk and the first of the next, in ms,
     and the seconds from the first chunk's end to the last one's."""
-    ev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                key=lambda e: e.time_range.start)
+    ev = sorted(_device_events(torch, prof), key=lambda e: e.time_range.start)
     marks = [i for i, e in enumerate(ev) if "noop_kernel" in e.name]
     if len(marks) != 2 * chunks:
         return None
@@ -2862,11 +2868,10 @@ def _device_by_name(torch, fn, reps: int = 3, top: int = 12):
                 fn()
             torch.cuda.synchronize()
         by, n = {}, 0
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                key = e.name[:70]
-                by[key] = by.get(key, 0.0) + e.time_range.elapsed_us() / reps / 1e3
-                n += 1
+        for e in _device_events(torch, prof):
+            key = e.name[:70]
+            by[key] = by.get(key, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+            n += 1
         if by:
             names = dict(sorted(by.items(), key=lambda kv: -kv[1])[:top])
             return sum(by.values()), n / reps, names

@@ -124,6 +124,15 @@ the reference (``api.py:480-489``), and the auto thresholds of remat and of
 pipelining count the pixels of the most loaded device (all of them where
 the mesh repeats one card).
 
+Spans (``trace.py``; recorded under a profiler or ``trace.recording()``):
+``stylize`` is the call, ``scale`` one scale of the plan, inside it
+``capture`` (the images resized, the targets captured and blended),
+``resize`` (the optimized image and the EMA carried to the scale, or
+initialized or restored, and sharded), ``dispatch`` (the body of
+``_dispatch_chunk``) and ``process`` (``_process``), inside which ``fetch``
+waits on the chunk's event and reads its losses and ``callback`` hands its
+event to the sink; ``output`` is the final quantize and copy to the host.
+
 Left out (ROADMAP.md): background compiles (``warm_compile``: the port
 compiles nothing per scale), grid snapping and the 2^31 TPU resolution
 ceiling, and the ``packed_block*`` switches (the chain engages by its
@@ -132,6 +141,7 @@ structural gates alone).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import time
@@ -144,6 +154,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from style_transfer_tpu_torch import trace
 from style_transfer_tpu_torch.models import vgg as vgg_mod
 from style_transfer_tpu_torch.models.weights import random_fixture
 from style_transfer_tpu_torch.ops import losses as L
@@ -419,6 +430,18 @@ class _CallbackSink:
         """Stops the worker thread after the callback it runs, if any."""
         if self._pool is not None:
             self._pool.shutdown(wait=True)
+
+
+@contextlib.contextmanager
+def _callback_sink(callback: Optional[Callback]):
+    """A :class:`_CallbackSink` of ``callback`` (None without one), closed
+    on the way out."""
+    sink = _CallbackSink(callback) if callback is not None else None
+    try:
+        yield sink
+    finally:
+        if sink is not None:
+            sink.close()
 
 
 def _checkpointed(fn):
@@ -932,169 +955,174 @@ class StyleTransfer:
                 raise ValueError(
                     f"checkpoint at scale {resume_scale} but plan has {len(plan)} scales"
                 )
-        sink = _CallbackSink(callback) if callback is not None else None
-        try:
+        with (trace.call(sizes=[scale.size for scale in plan]),
+              _callback_sink(callback) as sink):
             for scale in plan:
                 if scale.index < resume_scale:
                     continue
-                h, w = scale.size
-                content_s = imgio.resize_image(content_t, (h, w))
-                c_targets = self._capture_content(cfg, content_s)
-                gram_list: Dict[str, list] = {l: [] for l in cfg.style_layers}
-                for st in style_ts:
-                    st_s = imgio.resize_image(
-                        st, _style_size(st.shape[1:3], (h, w), cfg.style_scale))
-                    grams = self._capture_style(cfg, st_s)
-                    for l in cfg.style_layers:
-                        gram_list[l].append(grams[l])
-                s_targets = {l: L.blend_grams(gs, blend) for l, gs in gram_list.items()}
+                with trace.span("scale", index=scale.index, size=scale.size,
+                                iterations=scale.iterations):
+                    h, w = scale.size
+                    with trace.span("capture"):
+                        content_s = imgio.resize_image(content_t, (h, w))
+                        c_targets = self._capture_content(cfg, content_s)
+                        gram_list: Dict[str, list] = {l: [] for l in cfg.style_layers}
+                        for st in style_ts:
+                            st_s = imgio.resize_image(
+                                st, _style_size(st.shape[1:3], (h, w), cfg.style_scale))
+                            grams = self._capture_style(cfg, st_s)
+                            for l in cfg.style_layers:
+                                gram_list[l].append(grams[l])
+                        s_targets = {l: L.blend_grams(gs, blend) for l, gs in gram_list.items()}
 
-                step, optimizer = make_step_fn(
-                    lambda im, c=c_targets, s=s_targets: objective(im, c, s), cfg.optimizer
-                )
-                if scale.index == resume_scale:
-                    shape = np.shape(resume_state["image"])
-                    if tuple(shape) != (1, h, w, 3):
-                        raise ValueError(
-                            f"checkpoint image shape {tuple(shape)} does not match "
-                            f"scale {scale.index} shape (1, {h}, {w}, 3)"
-                        )
-                    image = self._state_image(resume_state["image"])
-                    opt_state = restore_opt_state(optimizer.init(image),
-                                                  list(resume_state["opt_state_leaves"]))
-                    done_iters = min(resume_iters, scale.iterations)
-                    if averaging:
-                        ema = self._state_image(resume_state.get("ema", resume_state["image"]))
-                else:
-                    if image is None:
-                        image = self._init_image(cfg, content_s, init_image, (h, w))
-                        ema = image.clone() if averaging else None
-                    else:
-                        image = self._resized(image, (h, w))
-                        if averaging:
-                            ema = self._resized(ema, (h, w))
-                    # contiguous, as a resumed image is: one layout, the same
-                    # sums; on a mesh, the row shards (every copy above is freed)
-                    image = M.shard_image(image.contiguous(), self.mesh)
-                    ema = M.shard_image(ema.contiguous(), self.mesh) if averaging else None
-                    opt_state = optimizer.init(image)
-                    done_iters = 0
-                del content_s  # captured, and the image's start: not kept for the scale
+                    step, optimizer = make_step_fn(
+                        lambda im, c=c_targets, s=s_targets: objective(im, c, s), cfg.optimizer
+                    )
+                    with trace.span("resize"):
+                        if scale.index == resume_scale:
+                            shape = np.shape(resume_state["image"])
+                            if tuple(shape) != (1, h, w, 3):
+                                raise ValueError(
+                                    f"checkpoint image shape {tuple(shape)} does not match "
+                                    f"scale {scale.index} shape (1, {h}, {w}, 3)"
+                                )
+                            image = self._state_image(resume_state["image"])
+                            opt_state = restore_opt_state(optimizer.init(image),
+                                                          list(resume_state["opt_state_leaves"]))
+                            done_iters = min(resume_iters, scale.iterations)
+                            if averaging:
+                                ema = self._state_image(
+                                    resume_state.get("ema", resume_state["image"]))
+                        else:
+                            if image is None:
+                                image = self._init_image(cfg, content_s, init_image, (h, w))
+                                ema = image.clone() if averaging else None
+                            else:
+                                image = self._resized(image, (h, w))
+                                if averaging:
+                                    ema = self._resized(ema, (h, w))
+                            # contiguous, as a resumed image is: one layout, the same
+                            # sums; on a mesh, the row shards (every copy above is freed)
+                            image = M.shard_image(image.contiguous(), self.mesh)
+                            ema = M.shard_image(ema.contiguous(), self.mesh) if averaging else None
+                            opt_state = optimizer.init(image)
+                            done_iters = 0
+                    del content_s  # captured, and the image's start: not kept for the scale
 
-                pipeline = _pipeline_auto(cfg, self._pixels(h, w))
-                shards = 1 if self.mesh is None else M.shard_count(h, self.mesh.size)
-                prev_mean, stall, t_prev, prev_event = None, 0, 0.0, None
+                    pipeline = _pipeline_auto(cfg, self._pixels(h, w))
+                    shards = 1 if self.mesh is None else M.shard_count(h, self.mesh.size)
+                    prev_mean, stall, t_prev, prev_event = None, 0, 0.0, None
 
-                def _process(rec: _PendingChunk) -> bool:
-                    """Fetch a queued chunk's losses, run the sanitizer, the
-                    early-stop decision and the callback; True when the scale
-                    stops after this chunk."""
-                    nonlocal prev_mean, stall, prev_event
-                    rec.event.synchronize()  # this chunk's work, not the chunks queued after it
-                    fetched = rec.loss_host.numpy()
-                    losses = {k: fetched[i] for i, k in enumerate(rec.keys)}
-                    # dt: from the previous chunk's end to this one's, on the
-                    # card's clock. The reference reads it between its fetches,
-                    # which follow the chunks' ends while its host stays ahead;
-                    # an eager host blocks on the launch queue instead, and finds
-                    # the chunks it drains at a scale's end long done. A chunk
-                    # queued when no other was: the host's clock since then.
-                    if prev_event is None:
-                        dt = time.perf_counter() - t_prev
-                    else:
-                        dt = prev_event.elapsed_time(rec.event) / 1e3
-                    prev_event = rec.event
+                    def _process(rec: _PendingChunk) -> bool:
+                        """Fetch a queued chunk's losses, run the sanitizer, the
+                        early-stop decision and the callback; True when the scale
+                        stops after this chunk."""
+                        nonlocal prev_mean, stall, prev_event
+                        with trace.span("process"):
+                            with trace.span("fetch"):
+                                # this chunk's work, not the chunks queued after it
+                                rec.event.synchronize()
+                                fetched = rec.loss_host.numpy()
+                            losses = {k: fetched[i] for i, k in enumerate(rec.keys)}
+                            # dt: from the previous chunk's end to this one's, on the
+                            # card's clock. The reference reads it between its fetches,
+                            # which follow the chunks' ends while its host stays ahead;
+                            # an eager host blocks on the launch queue instead, and finds
+                            # the chunks it drains at a scale's end long done. A chunk
+                            # queued when no other was: the host's clock since then.
+                            if prev_event is None:
+                                dt = time.perf_counter() - t_prev
+                            else:
+                                dt = prev_event.elapsed_time(rec.event) / 1e3
+                            prev_event = rec.event
 
-                    if cfg.debug_checks:
-                        bad = {k: v for k, v in losses.items() if not np.isfinite(v).all()}
-                        if bad:
-                            raise FloatingPointError(
-                                f"non-finite loss terms {sorted(bad)} at scale "
-                                f"{scale.index} ({h}x{w}), iteration {rec.done_iters}"
-                            )
+                            if cfg.debug_checks:
+                                bad = {k: v for k, v in losses.items() if not np.isfinite(v).all()}
+                                if bad:
+                                    raise FloatingPointError(
+                                        f"non-finite loss terms {sorted(bad)} at scale "
+                                        f"{scale.index} ({h}x{w}), iteration {rec.done_iters}"
+                                    )
 
-                    # Early stop is decided BEFORE the callback, so the final
-                    # event of a run that stops early carries done=True.
-                    stop = False
-                    if cfg.stop_tol > 0:
-                        mean_loss = float(np.mean(losses["loss"]))
-                        if prev_mean is not None:
-                            rel = abs(prev_mean - mean_loss) / max(abs(prev_mean), 1e-12)
-                            stall = stall + 1 if rel < cfg.stop_tol else 0
-                            stop = stall >= cfg.stop_patience
-                        prev_mean = mean_loss
+                            # Early stop is decided BEFORE the callback, so the final
+                            # event of a run that stops early carries done=True.
+                            stop = False
+                            if cfg.stop_tol > 0:
+                                mean_loss = float(np.mean(losses["loss"]))
+                                if prev_mean is not None:
+                                    rel = abs(prev_mean - mean_loss) / max(abs(prev_mean), 1e-12)
+                                    stall = stall + 1 if rel < cfg.stop_tol else 0
+                                    stop = stall >= cfg.stop_patience
+                                prev_mean = mean_loss
 
-                    if sink is not None:
-                        fetch = functools.partial(_to_host, event=rec.event,
-                                                  stream=self._copy_stream)
-                        sink(
-                            ProgressEvent(
-                                scale_index=scale.index,
-                                num_scales=len(plan),
-                                size=(h, w),
-                                iteration=rec.done_iters,
-                                total_iterations=scale.iterations,
-                                losses=losses,
-                                its_per_sec=rec.n / dt if dt > 0 else float("inf"),
-                                get_image=lambda s=rec.snap, f=fetch: f([s])[0],
-                                done=scale.index == plan[-1].index
-                                and (rec.done_iters >= scale.iterations or stop),
-                                get_state=functools.partial(
-                                    _resumable_state, rec.image, rec.opt_state, rec.done_iters,
-                                    scale.index, rec.ema, fetch),
-                                shards=shards,
-                            ),
-                            threaded=pipeline,
-                        )
-                    return stop
+                            if sink is not None:
+                                fetch = functools.partial(_to_host, event=rec.event,
+                                                          stream=self._copy_stream)
+                                event = ProgressEvent(
+                                    scale_index=scale.index,
+                                    num_scales=len(plan),
+                                    size=(h, w),
+                                    iteration=rec.done_iters,
+                                    total_iterations=scale.iterations,
+                                    losses=losses,
+                                    its_per_sec=rec.n / dt if dt > 0 else float("inf"),
+                                    get_image=lambda s=rec.snap, f=fetch: f([s])[0],
+                                    done=scale.index == plan[-1].index
+                                    and (rec.done_iters >= scale.iterations or stop),
+                                    get_state=functools.partial(
+                                        _resumable_state, rec.image, rec.opt_state,
+                                        rec.done_iters, scale.index, rec.ema, fetch),
+                                    shards=shards,
+                                )
+                                with trace.span("callback"):
+                                    sink(event, threaded=pipeline)
+                            return stop
 
-                # Up to _PIPELINE_DEPTH chunks stay queued beyond the one being
-                # processed; sequentially each is processed before the next is
-                # queued. Nothing the loop runs writes a tensor in place (the
-                # optimizers return new states), so each record keeps its own
-                # chunk's image, EMA and state however many chunks follow it:
-                # the rollback below and get_state rely on that.
-                queue: deque = deque()
-                depth = _PIPELINE_DEPTH if pipeline else 0
-                stopped = False
-                while done_iters < scale.iterations:
-                    n = min(cfg.chunk_size, scale.iterations - done_iters)
-                    if not queue:
-                        t_prev, prev_event = time.perf_counter(), None
-                    rec = self._dispatch_chunk(step, image, ema, opt_state, n=n,
-                                               done_iters=done_iters, decay=cfg.avg_decay,
-                                               snapshot=sink is not None)
-                    image, ema, opt_state = rec.image, rec.ema, rec.opt_state
-                    done_iters = rec.done_iters
-                    queue.append(rec)
-                    while len(queue) > depth:
-                        rec = queue.popleft()
-                        if _process(rec):
-                            # early stop at this chunk: drop the speculative
-                            # chunks queued after it, continue from its state
-                            image, ema, done_iters = rec.image, rec.ema, rec.done_iters
-                            queue.clear()
-                            stopped = True
+                    # Up to _PIPELINE_DEPTH chunks stay queued beyond the one being
+                    # processed; sequentially each is processed before the next is
+                    # queued. Nothing the loop runs writes a tensor in place (the
+                    # optimizers return new states), so each record keeps its own
+                    # chunk's image, EMA and state however many chunks follow it:
+                    # the rollback below and get_state rely on that.
+                    queue: deque = deque()
+                    depth = _PIPELINE_DEPTH if pipeline else 0
+                    stopped = False
+                    while done_iters < scale.iterations:
+                        n = min(cfg.chunk_size, scale.iterations - done_iters)
+                        if not queue:
+                            t_prev, prev_event = time.perf_counter(), None
+                        rec = self._dispatch_chunk(step, image, ema, opt_state, n=n,
+                                                   done_iters=done_iters, decay=cfg.avg_decay,
+                                                   snapshot=sink is not None)
+                        image, ema, opt_state = rec.image, rec.ema, rec.opt_state
+                        done_iters = rec.done_iters
+                        queue.append(rec)
+                        while len(queue) > depth:
+                            rec = queue.popleft()
+                            if _process(rec):
+                                # early stop at this chunk: drop the speculative
+                                # chunks queued after it, continue from its state
+                                image, ema, done_iters = rec.image, rec.ema, rec.done_iters
+                                queue.clear()
+                                stopped = True
+                                break
+                        if stopped:
                             break
-                    if stopped:
-                        break
-                # drain: the scale is complete either way; stop decisions are moot
-                while queue:
-                    _process(queue.popleft())
-                if sink is not None:
-                    sink.wait()  # every event of this scale is out before the next scale
-        finally:
-            if sink is not None:
-                sink.close()
+                    # drain: the scale is complete either way; stop decisions are moot
+                    while queue:
+                        _process(queue.popleft())
+                    if sink is not None:
+                        sink.wait()  # every event of this scale is out before the next scale
 
-        result = ema if averaging else image
-        if isinstance(result, tuple):  # the row shards: each quantized or copied on its own
-            if output_dtype == "uint8":
-                return np.concatenate([imgio.quantize_u8(r).cpu().numpy() for r in result])
-            return np.clip(M.gather_rows(result, "cpu")[0].detach().numpy(), 0.0, 1.0)
-        if output_dtype == "uint8":
-            return imgio.quantize_u8(result).cpu().numpy()
-        return np.clip(result[0].detach().cpu().numpy(), 0.0, 1.0)
+            with trace.span("output"):
+                result = ema if averaging else image
+                if isinstance(result, tuple):  # the row shards: each quantized or copied on its own
+                    if output_dtype == "uint8":
+                        return np.concatenate([imgio.quantize_u8(r).cpu().numpy() for r in result])
+                    return np.clip(M.gather_rows(result, "cpu")[0].detach().numpy(), 0.0, 1.0)
+                if output_dtype == "uint8":
+                    return imgio.quantize_u8(result).cpu().numpy()
+                return np.clip(result[0].detach().cpu().numpy(), 0.0, 1.0)
 
     def _dispatch_chunk(self, step, image, ema, opt_state, *, n: int, done_iters: int,
                         decay: float, snapshot: bool) -> _PendingChunk:
@@ -1103,27 +1131,29 @@ class StyleTransfer:
         ``snapshot``, the start of its loss fetch and its event. Nothing here
         reads the device (an L-BFGS step's line search excepted, once per
         line-search step), so on the card this returns once the work is
-        queued. Returns the chunk's record."""
-        sharded = isinstance(image, tuple)
-        rows = []
-        for _ in range(n):
-            image, opt_state, aux = step(image, opt_state)
-            if ema is not None and sharded:  # per shard, one launch per op and device
-                ema = tuple(torch._foreach_add(torch._foreach_mul(ema, decay),
-                                               torch._foreach_mul(image, 1.0 - decay)))
-            elif ema is not None:
-                ema = decay * ema + (1.0 - decay) * image
-            rows.append(aux)
-        snap = None
-        if snapshot:
-            src = image if ema is None else ema
-            snap = (tuple(torch._foreach_clamp_max(torch._foreach_clamp_min(
-                        [s[0] for s in src], 0.0), 1.0)) if sharded
-                    else src[0].clamp(0.0, 1.0))
-        keys, loss_host = _fetch_losses(rows)
-        return _PendingChunk(n=n, done_iters=done_iters + n, keys=keys, loss_host=loss_host,
-                             snap=snap, image=image, ema=ema, opt_state=opt_state,
-                             event=_chunk_event(self.device))
+        queued. Returns the chunk's record. The ``dispatch`` span is the
+        body's, so a wrapper of this method runs before it opens."""
+        with trace.span("dispatch", steps=n):
+            sharded = isinstance(image, tuple)
+            rows = []
+            for _ in range(n):
+                image, opt_state, aux = step(image, opt_state)
+                if ema is not None and sharded:  # per shard, one launch per op and device
+                    ema = tuple(torch._foreach_add(torch._foreach_mul(ema, decay),
+                                                   torch._foreach_mul(image, 1.0 - decay)))
+                elif ema is not None:
+                    ema = decay * ema + (1.0 - decay) * image
+                rows.append(aux)
+            snap = None
+            if snapshot:
+                src = image if ema is None else ema
+                snap = (tuple(torch._foreach_clamp_max(torch._foreach_clamp_min(
+                            [s[0] for s in src], 0.0), 1.0)) if sharded
+                        else src[0].clamp(0.0, 1.0))
+            keys, loss_host = _fetch_losses(rows)
+            return _PendingChunk(n=n, done_iters=done_iters + n, keys=keys, loss_host=loss_host,
+                                 snap=snap, image=image, ema=ema, opt_state=opt_state,
+                                 event=_chunk_event(self.device))
 
     # ---------------------------------------------------------------- misc
 

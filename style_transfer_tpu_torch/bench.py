@@ -306,9 +306,11 @@ def _busy_share(torch, prof, label: str):
     if not span:
         return None
     r0, r1 = span[0].time_range.start, span[0].time_range.end
-    # the range's own GPU annotation spans it whole: not device work
+    # the range's own GPU annotation spans it whole, and the program's spans
+    # inside it (``trace.py``) each theirs: not device work
     intervals = sorted((max(e.time_range.start, r0), min(e.time_range.end, r1))
-                       for e in events if e.device_type == cuda_type and e.name != label)
+                       for e in events if e.device_type == cuda_type and e.name != label
+                       and not getattr(e, "is_user_annotation", False))
     busy, end = 0.0, r0
     for s, t in intervals:
         s = max(s, end)

@@ -48,7 +48,10 @@ flag asks for what the port does not do:
   for the run, the port's form of ``jax_debug_nans``;
 - ``--profile-dir``: ``torch.profiler.profile`` (CPU, and CUDA on the card)
   over the run, written as a Chrome trace (``*.pt.trace.json``) into the
-  directory.
+  directory. The trace carries the stylize loop's spans as
+  ``style_transfer.<name>`` ranges (``stylize``, ``scale``, ``capture``,
+  ``resize``, ``dispatch``, ``process``, ``fetch``, ``callback``,
+  ``output``; ``trace.py``), on the trace's own clock.
 """
 
 from __future__ import annotations

@@ -62,7 +62,7 @@ INTERVAL_THRESHOLD = 1e-5  # optax's stepsize_precision
 
 # the line search's host reads, counted like the kernels' launches (reset by
 # setting ``n = 0``)
-host_reads = LaunchCount()
+host_reads = LaunchCount("linesearch.host_reads")
 
 
 def vdot(a, b) -> torch.Tensor:
@@ -390,7 +390,7 @@ class ZoomLinesearch:
         of :meth:`cond` after each step."""
         while True:
             s = self.step(s, value_and_grad_fn)
-            host_reads.n += 1
+            host_reads.add("cond", ())
             if not bool(self.cond(s)):
                 return s
 

@@ -27,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from style_transfer_tpu_torch import trace
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -67,10 +69,24 @@ class KernelBuildError(RuntimeError):
 class LaunchCount:
     """Plain-integer count of a wrapper's kernel launches (reset by setting
     ``n = 0``). A run reads it to show that its main path went through the
-    kernel rather than the plain version."""
+    kernel rather than the plain version.
 
-    def __init__(self) -> None:
+    Each launch calls :meth:`add`, which adds one to ``n`` always and, while
+    :mod:`style_transfer_tpu_torch.trace` records (a profiler session or a
+    ``trace.recording()`` block), one to ``trace.counts()[(name, kernel,
+    shape)]``: ``name`` the wrapper's (``conv_pair``, ``gram`` ...),
+    ``kernel`` the launcher of ``_launch.py`` (``conv3x3_fwd`` ...) and
+    ``shape`` the sizes and flags its operations and bytes follow from (the
+    launcher's docstring)."""
+
+    def __init__(self, name: str = "") -> None:
+        self.name = name
         self.n = 0
+
+    def add(self, kernel: str, shape: tuple) -> None:
+        self.n += 1
+        if trace.active():
+            trace.count(self.name, kernel, shape)
 
 
 def _nvcc() -> str:

@@ -3,8 +3,22 @@
 Each launcher checks device, dtype, shape, contiguity and alignment, allocates
 every output (and scratch) with ``torch.empty``, launches on PyTorch's current
 stream, raises if the launch was refused, and adds one to the caller's
-:class:`~style_transfer_tpu_torch.ops.kernels._build.LaunchCount`. Only CUDA
-tensors get here; nothing in this module runs on the CPU.
+:class:`~style_transfer_tpu_torch.ops.kernels._build.LaunchCount` under the
+launcher's name and the shape its operations and bytes follow from:
+
+- ``conv3x3_fwd``: ``(H, W, K, N, y, mask, pool)``, K input and N output
+  channels, and which outputs are written;
+- ``conv3x3_bwd_data``: ``(H, W, K, N, unpool, dy, in_mask, pre_add,
+  pre_gate, add, gate)``, K the cotangent's channels and N the output's,
+  and which operands are given;
+- ``gram``: ``(M, C, W, clo, chi)``, M the rows summed (a row window's
+  span), and the column window (0, 0, 0: none);
+- ``gram_fs``: ``(M, C, W, clo, chi, relu_gate, bf16 out)``;
+- ``tv``, ``tv_grad``: ``(H, W*C, C)``; ``sse``, ``scale_cast``:
+  ``(elements, bytes per element)``;
+- ``block1_fwd``, ``block1_bwd``: ``(H, W, full)``, ``full`` with conv1_1.
+
+Only CUDA tensors get here; nothing in this module runs on the CPU.
 """
 
 from __future__ import annotations
@@ -148,7 +162,7 @@ def conv3x3_fwd(
         h, wd, k, n, conv_tile(h, wd, n), _stream(),
     )
     _check_launch(lib, err, "conv3x3_fwd")
-    count.n += 1
+    count.add("conv3x3_fwd", (h, wd, k, n, y, mask, pool))
     return out_y, out_m, out_p
 
 
@@ -203,7 +217,9 @@ def conv3x3_bwd_data(
         _ptr(add), _ptr(gate), _ptr(out), h, wd, k, n, conv_tile(h, wd, n), _stream(),
     )
     _check_launch(lib, err, "conv3x3_bwd_data")
-    count.n += 1
+    count.add("conv3x3_bwd_data", (h, wd, k, n, unpool, dy is not None, in_mask is not None,
+                                   pre_add is not None, pre_gate is not None, add is not None,
+                                   gate is not None))
     return out
 
 
@@ -253,7 +269,7 @@ def gram(
     out = torch.empty((c, c), dtype=torch.float32, device=f.device)
     err = lib.st_gram(_ptr(f), _ptr(part), _ptr(out), m, c, chunk, *win, _stream())
     _check_launch(lib, err, "gram")
-    count.n += 1
+    count.add("gram", (m, c) + win)
     return out
 
 
@@ -285,7 +301,7 @@ def gram_fs(
     err = lib.st_gram_fs(_ptr(fw), _ptr(s), None if half else _ptr(ow), _ptr(ow) if half else None,
                          int(relu_gate), end - first, c, *win, _stream())
     _check_launch(lib, err, "gram_fs")
-    count.n += 1
+    count.add("gram_fs", (end - first, c) + win + (relu_gate, half))
     return out
 
 
@@ -391,7 +407,7 @@ def tv(x2d: torch.Tensor, c: int, *, count: LaunchCount,
     err = lib.st_tv(_ptr(x2d), _ptr(partial), _ptr(counter), _ptr(out), h, wc, c, vec,
                     float(h * wc if numel is None else numel), _stream())
     _check_launch(lib, err, "tv")
-    count.n += 1
+    count.add("tv", (h, wc, c))
     return out
 
 
@@ -409,7 +425,7 @@ def tv_grad(x2d: torch.Tensor, c: int, ct: torch.Tensor, *, count: LaunchCount,
     err = lib.st_tv_grad(_ptr(x2d), _ptr(ct), _ptr(grad), h, wc, c, vec,
                          float(h * wc if numel is None else numel), _stream())
     _check_launch(lib, err, "tv_grad")
-    count.n += 1
+    count.add("tv_grad", (h, wc, c))
     return grad
 
 
@@ -434,7 +450,7 @@ def sse(f: torch.Tensor, t: torch.Tensor, *, count: LaunchCount) -> torch.Tensor
     err = lib.st_sse(_ptr(f), _ptr(t), _ptr(partial), _ptr(counter), _ptr(out), n, float(n),
                      nblocks, int(f.dtype == torch.bfloat16), _stream())
     _check_launch(lib, err, "sse")
-    count.n += 1
+    count.add("sse", (n, f.element_size()))
     return out
 
 
@@ -453,7 +469,7 @@ def scale_cast(f: torch.Tensor, t: torch.Tensor, ct: torch.Tensor, *,
                             cast_blocks(n, f.element_size()), int(f.dtype == torch.bfloat16),
                             _stream())
     _check_launch(lib, err, "scale_cast")
-    count.n += 1
+    count.add("scale_cast", (n, f.element_size()))
     return out
 
 
@@ -546,7 +562,7 @@ def block1_fwd(
         _ptr(mask), _ptr(pool), _ptr(part), _ptr(gram), h, w, _stream(),
     )
     _check_launch(lib, err, "block1_fwd")
-    count.n += 1
+    count.add("block1_fwd", (h, w, full))
     return pool, gram, r1, mask
 
 
@@ -574,7 +590,7 @@ def block1_bwd(
     err = lib.st_block1_bwd(_ptr(d_pool), _ptr(mask), _ptr(r1), _ptr(s), _ptr(k2t), _ptr(k1),
                             _ptr(out), h, w, _stream())
     _check_launch(lib, err, "block1_bwd")
-    count.n += 1
+    count.add("block1_bwd", (h, w, k1 is not None))
     return out
 
 

@@ -76,11 +76,11 @@ C = 64
 HALO = CP.HALO
 
 #: Kernel launches made by :func:`block1_packed`.
-launches = LaunchCount()
+launches = LaunchCount("block1_packed")
 #: Kernel launches made by :func:`block1_full`.
-full_launches = LaunchCount()
+full_launches = LaunchCount("block1_full")
 #: Kernel launches made by :func:`block1_tail`.
-tail_launches = LaunchCount()
+tail_launches = LaunchCount("block1_tail")
 
 
 def block1_plain(x, k1, b1, k2, b2, *, gram_rows=None, hw=None):

@@ -38,7 +38,7 @@ from style_transfer_tpu_torch.ops.kernels.conv_pair import _rows
 from style_transfer_tpu_torch.parallel import mesh as M
 
 #: Kernel launches made by the conv+Gram wrapper.
-launches = LaunchCount()
+launches = LaunchCount("conv_gram")
 
 #: Halo rows each way of a shard under :func:`make_sharded_conv_gram`: the
 #: reach of one 3x3 conv. The TPU's 2 (``conv_gram.py:208``) also covers its

@@ -53,7 +53,7 @@ from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
 from style_transfer_tpu_torch.parallel import mesh as M
 
 #: Kernel launches made by the conv-pair wrapper (and its block-2 instance).
-launches = LaunchCount()
+launches = LaunchCount("conv_pair")
 
 #: Halo rows each way of a shard under :func:`make_sharded_pair`: the
 #: pair's reach (two 3x3 convs), even for the pool's row pairs. The TPU's

@@ -72,9 +72,9 @@ from style_transfer_tpu_torch.ops.kernels.conv_pair import _rows
 from style_transfer_tpu_torch.parallel import mesh as M
 
 #: Kernel launches made by the single-conv wrappers (the chain's singles).
-launches = LaunchCount()
+launches = LaunchCount("conv_single")
 #: Kernel launches made by :func:`gram_tail` (conv5_1 beyond conv_gram's range).
-gram_tail_launches = LaunchCount()
+gram_tail_launches = LaunchCount("gram_tail")
 
 #: Halo columns each side of a W slice (``vmem.WIDE_HALO``).
 WIDE_HALO = 8

@@ -58,11 +58,11 @@ from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
 from style_transfer_tpu_torch.parallel import mesh as M
 
 #: Kernel launches made by the TV wrapper, forward and backward.
-launches = LaunchCount()
+launches = LaunchCount("tv")
 #: Kernel launches made by :func:`content_loss`, forward and backward.
-content_launches = LaunchCount()
+content_launches = LaunchCount("content_loss")
 #: Kernel launches made by :func:`style_loss`, forward and backward.
-style_launches = LaunchCount()
+style_launches = LaunchCount("style_loss")
 
 def tv_loss_plain(image):
     return losses.tv_loss(image)

@@ -44,7 +44,7 @@ from style_transfer_tpu_torch.ops.kernels import _launch
 from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
 
 #: Kernel launches made by :func:`pallas_gram` (forward and backward).
-launches = LaunchCount()
+launches = LaunchCount("gram")
 
 #: Channel widths that :func:`gram_matrix` sends to the kernel.
 KERNEL_CHANNELS: frozenset = frozenset({64, 128, 256, 512})
