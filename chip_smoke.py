@@ -415,8 +415,8 @@ def _cuobjdump():
 
 # kernels of csrc/conv3x3.cu, csrc/gram.cu and csrc/block1.cu whose products
 # must run on the tensor cores (the Grams' reduce passes only add partials)
-TENSOR_CORE_KERNELS = ("conv3x3_kernel", "gram_partial_kernel", "gram_fs_kernel",
-                       "block1_fwd_kernel", "block1_bwd_kernel")
+TENSOR_CORE_KERNELS = ("conv3x3_kernel", "conv3x3_wgmma_kernel", "gram_partial_kernel",
+                       "gram_fs_kernel", "block1_fwd_kernel", "block1_bwd_kernel")
 
 
 def tensor_core_report(lib_path):
@@ -546,9 +546,15 @@ VGG_CONVS = [("conv1_1", 0, 3, 64), ("conv1_2", 0, 64, 64), ("conv2_1", 1, 64, 1
 
 
 def conv_rates(torch):
-    """Achieved TFLOP/s of the bare forward and backward-data launches at
-    every conv shape of the 512 px and 2048 px scales (profiler time), with
-    ``F.conv2d`` forward beside them."""
+    """Achieved TFLOP/s of the forward, the bare backward-data and the
+    backward-data with the chain's prologue (unpooled cotangent + fp32
+    ``pre_add`` + ``pre_gate``, as a single's backward stages it) at every
+    conv shape of the 512 px and 2048 px scales (profiler time), each with
+    the tile the chooser gave it, ``F.conv2d`` forward beside them; where a
+    side has more than 64 output channels, the same launches forced onto
+    each tile that serves them (``by_tile``: the warpgroup tile and the
+    small 8x8-pixel ``mma.sync`` tile), which is what ``_launch.conv_tile``
+    is chosen from."""
     import torch.nn.functional as F
 
     from style_transfer_tpu_torch.ops.kernels import _build, _launch
@@ -563,22 +569,49 @@ def conv_rates(torch):
             w = (torch.randn(3, 3, cin, cout, device=dev) * (2.0 / (9 * cin)) ** 0.5).to(bf16)
             b = torch.zeros(cout, device=dev).to(bf16)
             dy = torch.randn(s, s, cout, device=dev).to(bf16)
+            dy_pooled = torch.randn(s // 2, s // 2, cout, device=dev).to(bf16)
+            pre_add = torch.randn(s, s, cout, device=dev)
+            pre_gate = torch.randn(s, s, cout, device=dev).to(bf16)
             w_t = _launch.taps_transposed(w)
             xl = x.permute(2, 0, 1)[None].contiguous(memory_format=torch.channels_last)
             wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             flops = _conv_flops(s, s, (cin, cout)) / 2
-            fwd = _device_ms(torch, lambda: _launch.conv3x3_fwd(x, w, b, y=True, count=count))
+
+            def fwd(tile=None):
+                return _device_ms(torch, lambda: _launch.conv3x3_fwd(x, w, b, y=True, count=count,
+                                                                    tile=tile))
+
+            def bwd_chain(tile=None):
+                return _device_ms(torch, lambda: _launch.conv3x3_bwd_data(
+                    dy_pooled, w_t, hw=(s, s), unpool=True, pre_add=pre_add, pre_gate=pre_gate,
+                    count=count, tile=tile))
+
+            f_ms = fwd()
             bwd = _device_ms(torch, lambda: _launch.conv3x3_bwd_data(dy, w_t, hw=(s, s), count=count))
+            chain = bwd_chain()
             lib = _device_ms(torch, lambda: F.conv2d(xl, wl, padding=1))
+            by_tile = {}
+            for tile in (_launch.CONV_WGMMA_TILE, 2):
+                entry = {}
+                if cout > 64:
+                    entry["fwd_tflops"] = flops / fwd(tile) / 1e9
+                if cin > 64:
+                    entry["bwd_chain_tflops"] = flops / bwd_chain(tile) / 1e9
+                if entry:
+                    by_tile[tile] = entry
             rows.append({"conv": name, "shape": [s, s, cin, cout],
                          "tiles": [_launch.conv_tile(s, s, cout), _launch.conv_tile(s, s, cin)],
-                         "fwd_ms": fwd, "fwd_tflops": flops / fwd / 1e9,
+                         "fwd_ms": f_ms, "fwd_tflops": flops / f_ms / 1e9,
                          "bwd_ms": bwd, "bwd_tflops": flops / bwd / 1e9,
-                         "library_fwd_ms": lib, "library_fwd_tflops": flops / lib / 1e9})
-            del x, dy, xl
+                         "bwd_chain_ms": chain, "bwd_chain_tflops": flops / chain / 1e9,
+                         "library_fwd_ms": lib, "library_fwd_tflops": flops / lib / 1e9,
+                         "by_tile": by_tile})
+            del x, dy, dy_pooled, pre_add, pre_gate, xl
         emit({"phase": "kernel", "kernel": "conv_rates", "scale": px, "convs": rows,
               "fwd_ms_13_launches": sum(r["fwd_ms"] * (3 if "-4" in r["conv"] else 1) for r in rows),
-              "bwd_ms_13_launches": sum(r["bwd_ms"] * (3 if "-4" in r["conv"] else 1) for r in rows)})
+              "bwd_ms_13_launches": sum(r["bwd_ms"] * (3 if "-4" in r["conv"] else 1) for r in rows),
+              "bwd_chain_ms_13_launches": sum(r["bwd_chain_ms"] * (3 if "-4" in r["conv"] else 1)
+                                              for r in rows)})
         torch.cuda.empty_cache()
 
 

@@ -21,56 +21,103 @@
 //
 // The design. The output tile is pixels (M) x output channels (N); the
 // reduction runs over 9 taps x K input channels in chunks of KC = 16
-// channels (one k16 MMA step per tap).
+// channels (one k16 MMA step per tap). Each chunk stages the pixel tile with
+// its 1-pixel halo once, and all nine taps read it as shifted views, so the
+// input is fetched once per chunk, not nine times. Two main loops share the
+// staging code and the epilogue:
+//
+// The warpgroup loop (conv3x3_wgmma_kernel, tile 0: more than 64 output
+// channels wherever its grid gives more than a quarter of the SMs a block),
+// the loop that sets the pace of a 2048^2 step. Bound by the tensor cores'
+// rate once its operands arrive asynchronously: fed from a ring that is
+// always full, its consumers reach ~780 TFLOP/s; what it reaches is how fast
+// its producer fills the ring (450-780 forward, 350-440 with the backward's
+// full prologue at the 2048^2 chain's shapes).
+// - Instruction: wgmma.mma_async m64n128k16 (bf16 x bf16 -> fp32), both
+//   operands from shared memory by descriptor. A block is 16x16 pixels x
+//   128 channels: two consumer warpgroups, each owning two 8x8-pixel
+//   patches (an m64 tile each: 2 x 64 fp32 accumulators a thread), and one
+//   producer warpgroup; one block an SM (189 KB of shared memory, 154-165
+//   registers a thread, none spilled).
+// - A operand without swizzle: the haloed tile as two planes of 8 channels,
+//   a pixel 16 bytes ([c8][18][18][8]). A core matrix (8 rows x 16 bytes) is
+//   8 pixels side by side, so a patch is a descriptor with SBO = one staged
+//   row and LBO = one plane, and a tap's shift moves only its start address
+//   (16 bytes a pixel). The other choice, A from registers through ldmatrix
+//   as in the mma.sync loop, was not needed: the descriptor form costs the
+//   consumers no instruction per tap and no registers.
+// - B operand: the chunk's nine taps, N-major as the weights lie in device
+//   memory ((3, 3, K, N), n contiguous; no other weight layout is kept), in
+//   the 128-byte swizzle that TMA writes.
+// - Ring: 4 stages of 47 KB (the input, 11 KB, and the weights, 36 KB), a
+//   full and an empty mbarrier each. The producer's first thread issues a
+//   chunk's TMA loads: the input as two boxes (one per plane, zero-filled
+//   outside the image: the SAME padding) and the weights as two boxes of 64
+//   channels x 16 rows x 9 taps. The consumers wait on the full mbarrier,
+//   issue their 18 wgmmas, and once their products of the chunk before are
+//   done (wgmma.wait_group 1, so the tensor cores always hold a chunk)
+//   release that chunk's stage on its empty mbarrier. The first product of
+//   each accumulator starts the sum (scale-d 0): accumulators zeroed by
+//   other instructions make ptxas serialize the wgmmas.
+// - The backward's prologue (STAGED: unpool x0.25, int8 mask, + pre_add,
+//   pre_gate, one bf16 rounding) needs arithmetic, so its input cannot go to
+//   the ring as it lies: the 128 producer threads fetch its operands for
+//   the next chunk into registers, then apply the prologue to the current
+//   one and store it into the stage, so the loads of one chunk are in
+//   flight while the previous one's arithmetic runs. The consumers never
+//   wait on that arithmetic, only on the ring. (Raw operands brought by TMA
+//   into boxes beside a ring of 3 stages made these kernels 3-8% faster,
+//   about 1% of a 2048^2 step: not worth their code.)
+//
+// The mma.sync loop (conv3x3_kernel, tiles 1-3: 64 channels or fewer, and
+// small grids):
 // - Instruction: mma.sync.aligned.m16n8k16 (bf16 x bf16 -> fp32), operands
 //   from shared memory through ldmatrix. A warp owns MT m16 tiles x NTL n8
-//   tiles (64 x 32 outputs in the large tiles: 64 fp32 accumulators a
-//   thread); per tap it loads NTL / 2 B fragments and MT A fragments for
-//   MT * NTL MMAs. No wgmma in this version.
-// - Input: the pixel tile with its 1-pixel halo is staged once per chunk as
-//   bf16 [IH][IW][KC] and serves all nine taps as shifted views: the
-//   ldmatrix row addresses of a tap are the tile's pixel addresses plus a
-//   constant. A staged pixel takes 48 bytes (32 of data + 16 of padding), so
-//   the eight rows of an 8x8 ldmatrix (eight pixels side by side) fall into
-//   eight different 16-byte bank groups: no bank conflicts.
-// - Weights: the [9][KC][BN] slice of the (3, 3, K, N) taps is staged as it
-//   lies in device memory (n contiguous) with rows padded by 16 bytes, and
-//   read with ldmatrix.trans, which delivers the "col" B fragment; the
-//   padding keeps its eight k rows conflict-free. The kernel needs no weight
-//   layout of its own: the wrapper prepares the bf16 taps (and the flipped,
-//   transposed taps of backward-data) once per weight tensor.
+//   tiles; per tap it loads NTL / 2 B fragments and MT A fragments for
+//   MT * NTL MMAs.
+// - Input: staged as bf16 [IH][IW][KC]; the ldmatrix row addresses of a tap
+//   are the tile's pixel addresses plus a constant. A staged pixel takes 48
+//   bytes (32 of data + 16 of padding), so the eight rows of an 8x8
+//   ldmatrix (eight pixels side by side) fall into eight different 16-byte
+//   bank groups: no bank conflicts.
+// - Weights: the [9][KC][BN] slice staged as it lies (n contiguous) with
+//   rows padded by 16 bytes, and read with ldmatrix.trans, which delivers
+//   the "col" B fragment; the padding keeps its eight k rows conflict-free.
 // - Pipeline: STAGES (2 or 3) shared-memory stages; the weights, and the
 //   input when it needs no arithmetic (COPIED: forward, and backward-data
 //   without a prologue), arrive by cp.async (16 bytes, zero-filled outside
-//   the image, which is the SAME padding) while the previous chunk
-//   multiplies; one __syncthreads per chunk. A prologue that needs
-//   arithmetic (unpool x0.25, int8 mask, + pre_add, pre_gate, one bf16
-//   rounding) or an odd channel count (K = 3) takes a register-staged
-//   path (STAGED, STAGED_SCALAR; separate instantiations): each thread loads its 8 channels of a pixel, applies the
-//   prologue, rounds once to bf16 and stores them into the next stage before
-//   it multiplies the current one; two blocks share an SM, so the other
-//   block's MMAs cover those loads. Every prologue result is a bf16 value
-//   (x0.25 is exact), so the products are those of the fp32 version and only
-//   the order of the sum differs.
-// - Tiles (chosen by the wrapper, `conv_tile` in ops/kernels/_launch.py):
-//     0: 8x16 pixels x 128 channels, 8 warps (2 x 4), 2 stages,  93 KB
-//     1: 16x16 pixels x 64 channels, 8 warps (4 x 2), 3 stages, 106 KB
-//     2: 8x8 pixels x 64 channels,   4 warps (2 x 2), 2 stages,  50 KB
-//        (deep, small layers: 32x32x512 gives 128 blocks instead of 32;
-//        taken where a larger tile would leave a quarter of the SMs idle)
-//     3: 16x16 pixels x 8 channels,  8 warps (8 x 1), 2 stages,  35 KB
-//        (conv1_1's backward-data, N = 3: an n8 tile instead of 64 columns)
-//   each sized for two or more blocks per SM. conv1_1 forward (K = 3) runs
-//   the same tensor-core body with its one chunk zero-padded from 3 to 16
-//   channels. No split of K and no atomics: a block owns its outputs and
-//   sums in a fixed order, so results are bit-identical run to run.
+//   the image) while the previous chunk multiplies; one __syncthreads per
+//   chunk. A prologue that needs arithmetic (unpool x0.25, int8 mask, +
+//   pre_add, pre_gate, one bf16 rounding) or an odd channel count (K = 3)
+//   takes a register-staged path (STAGED, STAGED_SCALAR; separate
+//   instantiations): each thread loads its 8 channels of a pixel, applies
+//   the prologue, rounds once to bf16 and stores them into the next stage
+//   before it multiplies the current one; two or more blocks share an SM,
+//   so another block's MMAs cover those loads.
 // - Pool-window mapping: row r of an m16 tile is pixel (2 ty + r / 8,
 //   8 tx + r % 8) of the block's tile, i.e. an m16 tile is a 2 x 8 pixel
-//   patch. After the main loop the fp32 accumulators go through shared
-//   memory (the pipeline's buffers re-used as a [pixel][channel] tile), and
-//   the epilogue reads them back 8 channels a thread: the four pixels of a
-//   pool window are four rows of that tile, and y, the mask and the pool
-//   leave as 16-, 8- and 16-byte coalesced stores.
+//   patch.
+//
+// Every prologue result is a bf16 value (x0.25 is exact), so the products
+// are those of the fp32 version and only the order of the sum differs.
+// Tiles (chosen by the wrapper by shape alone, `conv_tile` in
+// ops/kernels/_launch.py):
+//     0: 16x16 pixels x 128 channels, 2 warpgroups, wgmma, 4 stages, 189 KB
+//        (more than 64 channels where more than a quarter of the SMs get a block)
+//     1: 16x16 pixels x 64 channels, 8 warps (4 x 2), 3 stages, 106 KB
+//     2: 8x8 pixels x 64 channels,   4 warps (2 x 2), 2 stages,  50 KB
+//        (deep, small layers: taken where a larger tile would leave SMs idle)
+//     3: 16x16 pixels x 8 channels,  8 warps (8 x 1), 2 stages,  35 KB
+//        (conv1_1's backward-data, N = 3: an n8 tile instead of 64 columns)
+// The mma.sync tiles are sized for two or more blocks per SM, the wgmma tile
+// for one. conv1_1 forward (K = 3) runs the mma.sync body with its one chunk
+// zero-padded from 3 to 16 channels. No split of K and no atomics: a block
+// owns its outputs and sums in a fixed order, so results are bit-identical
+// run to run. After either main loop the fp32 accumulators go through shared
+// memory (the ring re-used as a [pixel][channel] tile), and the epilogue
+// reads them back 8 channels a thread: the four pixels of a pool window are
+// four rows of that tile, and y, the mask and the pool leave as 16-, 8- and
+// 16-byte coalesced stores.
 //
 // Rounding points follow the TPU kernels: fp32 accumulation, bias added in
 // fp32 from its bf16 value, the ReLU output rounded once to bf16, the pool
@@ -86,6 +133,8 @@
 // (conv_single.py) gates before the taps, from its own stored activation y:
 // prologue = the optionally unpooled cotangent (absent: zero), plus an fp32
 // term (the Gram term y.S), zeroed where y <= 0, rounded once to bf16.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
@@ -134,12 +183,67 @@ struct Tile {
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   static constexpr int C_STRIDE = BN + 8;             // fp32 per pixel of the output tile
   static constexpr int SMEM = cmax(STAGES * STAGE_BYTES, BM * C_STRIDE * 4);
+  static constexpr bool WGMMA = false;
+  static constexpr int LOADERS = NT;                  // threads that stage a chunk
   static_assert(BM % (16 * WARPS_M) == 0 && BN % (8 * WARPS_N) == 0, "warp tiling");
   static_assert(TW % 8 == 0 && TH % 2 == 0, "an m16 tile is a 2 x 8 pixel patch");
   static_assert(NTL == 1 || NTL % 2 == 0, "B fragments load in pairs");
+  // byte offsets inside a stage: channels c8*8.. of staged pixel pix; weights
+  // n8*8.. of tap t, row k
+  __device__ static uint32_t a_off(int pix, int c8) { return (pix * A_STRIDE + c8 * 8) * 2; }
+  __device__ static uint32_t b_off(int t, int k, int n8) {
+    return A_BYTES + ((t * KC + k) * B_STRIDE + n8 * 8) * 2;
+  }
 };
 
-using Tile0 = Tile<8, 16, 128, 2, 4, 2, 2>;
+// The warpgroup tile: TH x TW pixels cut into 8 x 8-pixel patches, one m64
+// wgmma tile each, x BN = 128 channels; NWG consumer warpgroups, each owning
+// PPW patches of the block's rows. A stage holds the haloed input tile as
+// KC / 8 planes of 8 channels, a pixel 16 bytes ([c8][IH][IW][8], each plane
+// one 128-byte aligned TMA box): a core-matrix layout without swizzle, so an
+// A operand is a descriptor at the patch's first pixel (SBO = one staged
+// row, LBO = one plane) and a tap's shift moves only its start. The
+// weights follow as two TMA boxes, one per half of the 128 channels, each
+// [tap][k][64 n] in the 128-byte swizzle (128-byte rows, their 16-byte
+// chunks at chunk ^ (k % 8), atoms of 8 rows): per tap an N-major operand
+// with SBO = 1024 (8 k rows) and LBO = one half. Stages, and each part of
+// them, start on 1024-byte boundaries; the mbarriers follow the ring. One
+// producer warpgroup (LOADERS threads) stages the chunks.
+template <int TH_, int TW_, int STAGES_>
+struct WgTile {
+  static constexpr int TH = TH_, TW = TW_, BN = 128, STAGES = STAGES_, MINB = 1;
+  static constexpr int BM = TH * TW;                   // pixels per block
+  static constexpr int NWG = 2;                        // consumer warpgroups
+  static constexpr int LOADERS = 128;                  // the producer warpgroup
+  static constexpr int NT = 128 * NWG + LOADERS;       // threads per block
+  static constexpr int PPW = BM / 64 / NWG;            // 8x8 patches per consumer warpgroup
+  static constexpr int IH = TH + 2, IW = TW + 2;
+  static constexpr int N8 = BN / 8;
+  static constexpr int A_BOX = IH * IW * 16;           // bytes of one 8-channel plane
+  static constexpr int A_PLANE = (A_BOX + 127) / 128 * 128;  // a TMA box starts 128-aligned
+  static constexpr int A_BYTES = ((KC / 8) * A_PLANE + 1023) / 1024 * 1024;
+  static constexpr int B_TAP = KC * 128;               // bytes of a tap in one half
+  static constexpr int B_HALF = 9 * B_TAP;             // one TMA box: 64 channels, 9 taps
+  static constexpr int B_BYTES = 2 * B_HALF;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int C_STRIDE = BN + 8;              // fp32 per pixel of the output tile
+  static constexpr int BAR_OFF = cmax(STAGES * STAGE_BYTES, BM * C_STRIDE * 4);
+  // two mbarriers a stage (full, empty); + 1024: the kernel rounds the
+  // dynamic shared memory's start up to 1024 bytes
+  static constexpr int SMEM = BAR_OFF + 16 * STAGES + 1024;
+  static constexpr bool WGMMA = true;
+  static_assert(TH % 8 == 0 && TW % 8 == 0 && (BM / 64) % NWG == 0, "8x8 patches per warpgroup");
+  static_assert(STAGES >= 2, "one stage multiplying, one loading");
+  static_assert(KC == 16 && BN == 128, "two planes of input, two halves of weights");
+  static_assert(STAGE_BYTES % 1024 == 0 && B_HALF % 1024 == 0 && A_PLANE % 16 == 0,
+                "aligned operands");
+  __device__ static uint32_t a_off(int pix, int c8) { return c8 * A_PLANE + pix * 16; }
+  __device__ static uint32_t b_off(int t, int k, int n8) {
+    return A_BYTES + (n8 >> 3) * B_HALF + t * B_TAP + k * 128 + (((n8 & 7) ^ (k & 7)) << 4);
+  }
+};
+
+using Tile0 = WgTile<16, 16, 4>;
 using Tile1 = Tile<16, 16, 64, 4, 2, 3, 2>;
 using Tile2 = Tile<8, 8, 64, 2, 2, 2, 4>;
 using Tile3 = Tile<16, 16, 8, 8, 1, 2, 2>;
@@ -165,43 +269,68 @@ __device__ __forceinline__ float load1(const ConvArgs& a, int h, int w, int k) {
   return v;
 }
 
-// Eight consecutive channels k..k+7 of one input pixel (K % 8 == 0), before
-// the one bf16 rounding that the caller's pack applies.
-__device__ __forceinline__ void load8(const ConvArgs& a, int h, int w, int k, float* v) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = 0.f;
+// The operands of eight consecutive channels k..k+7 of one input pixel
+// (K % 8 == 0) as they lie in device memory; absent operands and pixels
+// outside the image read as zero. Fetched apart from the arithmetic, so that
+// a caller can keep the loads of a later chunk in flight across a barrier.
+struct Raw8 {
+  uint4 x, gate;  // bf16 x 8: the input (or its unpooled source), pre_gate
+  uint2 mask;     // int8 x 8: in_mask
+  float4 lo, hi;  // pre_add
+};
+
+__device__ __forceinline__ void fetch8(const ConvArgs& a, int h, int w, int k, Raw8& r) {
+  r.x = r.gate = make_uint4(0u, 0u, 0u, 0u);
+  r.mask = make_uint2(0u, 0u);
+  r.lo = r.hi = make_float4(0.f, 0.f, 0.f, 0.f);
   if (h < 0 || h >= a.H || w < 0 || w >= a.W || k >= a.K) return;
   const size_t pix = ((size_t)h * a.W + w) * a.K + k;
   if (a.x != nullptr) {
     const size_t src = a.unpool ? ((size_t)(h >> 1) * (a.W >> 1) + (w >> 1)) * a.K + k : pix;
-    st::load8_bf16(a.x + src, v);
-    if (a.unpool) {
+    r.x = *reinterpret_cast<const uint4*>(a.x + src);
+  }
+  if (a.in_mask != nullptr) r.mask = *reinterpret_cast<const uint2*>(a.in_mask + pix);
+  if (a.pre_add != nullptr) {
+    r.lo = *reinterpret_cast<const float4*>(a.pre_add + pix);
+    r.hi = *reinterpret_cast<const float4*>(a.pre_add + pix + 4);
+  }
+  if (a.pre_gate != nullptr) r.gate = *reinterpret_cast<const uint4*>(a.pre_gate + pix);
+}
+
+// The prologue on fetched operands, before the one bf16 rounding that the
+// caller's pack applies (a pixel outside the image gives zeros).
+__device__ __forceinline__ void apply8(const ConvArgs& a, const Raw8& r, float* v) {
+  st::load8_bf16(reinterpret_cast<const bf16*>(&r.x), v);
+  if (a.unpool) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] *= 0.25f;
-    }
+    for (int j = 0; j < 8; ++j) v[j] *= 0.25f;
   }
   if (a.in_mask != nullptr) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(a.in_mask + pix);
-    const int8_t* m = reinterpret_cast<const int8_t*>(&raw);
+    const int8_t* m = reinterpret_cast<const int8_t*>(&r.mask);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       if (m[j] == 0) v[j] = 0.f;
     }
   }
   if (a.pre_add != nullptr) {
-    const float4 lo = *reinterpret_cast<const float4*>(a.pre_add + pix);
-    const float4 hi = *reinterpret_cast<const float4*>(a.pre_add + pix + 4);
-    v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
-    v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
+    v[0] += r.lo.x; v[1] += r.lo.y; v[2] += r.lo.z; v[3] += r.lo.w;
+    v[4] += r.hi.x; v[5] += r.hi.y; v[6] += r.hi.z; v[7] += r.hi.w;
   }
   if (a.pre_gate != nullptr) {
     float g[8];
-    st::load8_bf16(a.pre_gate + pix, g);
+    st::load8_bf16(reinterpret_cast<const bf16*>(&r.gate), g);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       if (!(g[j] > 0.f)) v[j] = 0.f;
     }
   }
+}
+
+// Both at once: channels k..k+7 of input pixel (h, w) with the prologue.
+__device__ __forceinline__ void load8(const ConvArgs& a, int h, int w, int k, float* v) {
+  Raw8 r;
+  fetch8(a, h, w, k, r);
+  apply8(a, r, v);
 }
 
 // Stage chunk c (channels c*KC .. c*KC+15) of the haloed input tile and of
@@ -212,161 +341,115 @@ __device__ __forceinline__ void load8(const ConvArgs& a, int h, int w, int k, fl
 // instantiation, so none pays for another's registers.
 enum InputMode { COPIED = 0, STAGED = 1, STAGED_SCALAR = 2 };
 
+template <class T>
+constexpr int A_ITEMS = T::IH * T::IW * (KC / 8);  // 16-byte groups of the input tile
+
+// The warpgroup tile's register-staged input: a producer thread's groups of
+// chunk c fetched (fetch_input) while the chunk before is staged, and stored
+// with the prologue applied (store_input) once the chunk's stage is free.
+template <class T>
+constexpr int A_PER_THREAD = (A_ITEMS<T> + T::LOADERS - 1) / T::LOADERS;
+
+template <class T>
+__device__ __forceinline__ void fetch_input(const ConvArgs& a, Raw8 (&r)[A_PER_THREAD<T>], int c,
+                                            int h0, int w0, int tid) {
+#pragma unroll
+  for (int i = 0; i < A_PER_THREAD<T>; ++i) {
+    const int e = tid + i * T::LOADERS, pix = e / (KC / 8), c8 = e % (KC / 8);
+    fetch8(a, e < A_ITEMS<T> ? h0 + pix / T::IW - 1 : -1, w0 + pix % T::IW - 1, c * KC + c8 * 8,
+           r[i]);
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void store_input(const ConvArgs& a, const Raw8 (&r)[A_PER_THREAD<T>],
+                                            unsigned char* stage, int tid) {
+#pragma unroll
+  for (int i = 0; i < A_PER_THREAD<T>; ++i) {
+    const int e = tid + i * T::LOADERS;
+    if (e < A_ITEMS<T>) {
+      float v[8];
+      apply8(a, r[i], v);
+      *reinterpret_cast<uint4*>(stage + T::a_off(e / (KC / 8), e % (KC / 8))) = st::pack8_bf16(v);
+    }
+  }
+}
+
 template <class T, int MODE>
-__device__ __forceinline__ void load_stage(const ConvArgs& a, unsigned char* stage, int c, int h0,
-                                           int w0, int n0, int tid) {
+__device__ __forceinline__ void load_input(const ConvArgs& a, unsigned char* stage, int c, int h0,
+                                           int w0, int tid) {
   const int k0 = c * KC;
-  unsigned char* sa = stage;
-  unsigned char* sb = stage + T::A_BYTES;
   if constexpr (MODE == COPIED) {
-    const uint32_t sa32 = st::smem_u32(sa);
-    for (int e = tid; e < T::IH * T::IW * (KC / 8); e += T::NT) {
+    const uint32_t s32 = st::smem_u32(stage);
+    for (int e = tid; e < A_ITEMS<T>; e += T::LOADERS) {
       const int pix = e / (KC / 8), c8 = e % (KC / 8);
       const int h = h0 + pix / T::IW - 1, w = w0 + pix % T::IW - 1, k = k0 + c8 * 8;
       const bool valid = h >= 0 && h < a.H && w >= 0 && w < a.W && k < a.K;
       const bf16* src = valid ? a.x + ((size_t)h * a.W + w) * a.K + k : a.x;
-      st::cp_async16(sa32 + (pix * T::A_STRIDE + c8 * 8) * 2, src, valid);
+      st::cp_async16(s32 + T::a_off(pix, c8), src, valid);
     }
   } else if constexpr (MODE == STAGED) {
     // a rolled loop on purpose: unrolled, or with L2 prefetches of the next
     // chunk beside it, the chunk loop spills at the 128-register cap and the
     // launch gets markedly slower on the H100
-    for (int e = tid; e < T::IH * T::IW * (KC / 8); e += T::NT) {
+    for (int e = tid; e < A_ITEMS<T>; e += T::LOADERS) {
       const int pix = e / (KC / 8), c8 = e % (KC / 8);
       float v[8];
       load8(a, h0 + pix / T::IW - 1, w0 + pix % T::IW - 1, k0 + c8 * 8, v);
-      *reinterpret_cast<uint4*>(sa + (pix * T::A_STRIDE + c8 * 8) * 2) = st::pack8_bf16(v);
+      *reinterpret_cast<uint4*>(stage + T::a_off(pix, c8)) = st::pack8_bf16(v);
     }
   } else {
     // odd channel counts (conv1_1: K = 3): half a pixel's chunk a thread,
     // its 8 loads in flight together, channels beyond K zero
-    for (int e = tid; e < T::IH * T::IW * (KC / 8); e += T::NT) {
+    for (int e = tid; e < A_ITEMS<T>; e += T::LOADERS) {
       const int pix = e / (KC / 8), c8 = e % (KC / 8);
       const int h = h0 + pix / T::IW - 1, w = w0 + pix % T::IW - 1;
       float v[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k) v[k] = load1(a, h, w, k0 + c8 * 8 + k);
-      *reinterpret_cast<uint4*>(sa + (pix * T::A_STRIDE + c8 * 8) * 2) = st::pack8_bf16(v);
-    }
-  }
-  if ((a.N & 7) == 0) {
-    const uint32_t sb32 = st::smem_u32(sb);
-    constexpr int N8 = T::BN / 8;
-    for (int e = tid; e < 9 * KC * N8; e += T::NT) {
-      const int n8 = e % N8, k = (e / N8) % KC, t = e / (N8 * KC);
-      const bool valid = k0 + k < a.K && n0 + n8 * 8 < a.N;
-      const bf16* src = valid ? a.w + ((size_t)t * a.K + k0 + k) * a.N + n0 + n8 * 8 : a.w;
-      st::cp_async16(sb32 + ((t * KC + k) * T::B_STRIDE + n8 * 8) * 2, src, valid);
-    }
-  } else {
-    bf16* sb16 = reinterpret_cast<bf16*>(sb);
-#pragma unroll 4
-    for (int e = tid; e < 9 * KC * T::BN; e += T::NT) {
-      const int n = e % T::BN, k = (e / T::BN) % KC, t = e / (T::BN * KC);
-      bf16 v = __float2bfloat16_rn(0.f);
-      if (k0 + k < a.K && n0 + n < a.N) v = a.w[((size_t)t * a.K + k0 + k) * a.N + n0 + n];
-      sb16[(t * KC + k) * T::B_STRIDE + n] = v;
+      *reinterpret_cast<uint4*>(stage + T::a_off(pix, c8)) = st::pack8_bf16(v);
     }
   }
 }
 
-template <class T, bool FWD, int MODE>
-__global__ void __launch_bounds__(T::NT, T::MINB) conv3x3_kernel(const ConvArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
-  const int h0 = blockIdx.y * T::TH, w0 = blockIdx.x * T::TW, n0 = blockIdx.z * T::BN;
-  const uint32_t smem32 = st::smem_u32(smem);
-
-  float acc[T::MT][T::NTL][4];
-#pragma unroll
-  for (int i = 0; i < T::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < T::NTL; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-
-  // this lane's ldmatrix row addresses (byte offsets inside a stage): A row
-  // lane % 16 of each m16 tile at tap (0, 0), k half lane / 16; B row k
-  uint32_t a_off[T::MT];
-#pragma unroll
-  for (int i = 0; i < T::MT; ++i) {
-    const int mt = wm * T::MT + i, ty = mt / (T::TW / 8), tx = mt % (T::TW / 8);
-    const int r = lane & 15, py = 2 * ty + (r >> 3), px = 8 * tx + (r & 7);
-    a_off[i] = ((py * T::IW + px) * T::A_STRIDE + (lane >> 4) * 8) * 2;
-  }
-  uint32_t b_off;
-  if constexpr (T::NTL >= 2) {
-    const int krow = (lane & 7) + ((lane >> 3) & 1) * 8;
-    b_off = T::A_BYTES + (krow * T::B_STRIDE + wn * T::NTL * 8 + (lane >> 4) * 8) * 2;
+template <class T>
+__device__ __forceinline__ void load_weights(const ConvArgs& a, unsigned char* stage, int c, int n0,
+                                             int tid) {
+  const int k0 = c * KC;
+  constexpr int N8 = T::BN / 8;
+  if ((a.N & 7) == 0) {
+    const uint32_t s32 = st::smem_u32(stage);
+    for (int e = tid; e < 9 * KC * N8; e += T::LOADERS) {
+      // n8 fastest: a warp copies whole rows of the weights
+      const int n8 = e % N8, k = (e / N8) % KC, t = e / (N8 * KC);
+      const bool valid = k0 + k < a.K && n0 + n8 * 8 < a.N;
+      const bf16* src = valid ? a.w + ((size_t)t * a.K + k0 + k) * a.N + n0 + n8 * 8 : a.w;
+      st::cp_async16(s32 + T::b_off(t, k, n8), src, valid);
+    }
   } else {
-    b_off = T::A_BYTES + ((lane & 15) * T::B_STRIDE + wn * 8) * 2;
-  }
-
-  const int nchunks = (a.K + KC - 1) / KC;
-#pragma unroll
-  for (int s = 0; s < T::STAGES - 1; ++s) {
-    if (s < nchunks) load_stage<T, MODE>(a, smem + s * T::STAGE_BYTES, s, h0, w0, n0, tid);
-    st::cp_async_commit();
-  }
-
-  for (int c = 0; c < nchunks; ++c) {
-    st::cp_async_wait<T::STAGES - 2>();  // chunk c has landed (this thread's copies)
-    __syncthreads();                     // ... everyone's; and chunk c-1 is consumed
-    const int nxt = c + T::STAGES - 1;
-    if (nxt < nchunks) {
-      load_stage<T, MODE>(a, smem + (nxt % T::STAGES) * T::STAGE_BYTES, nxt, h0, w0, n0, tid);
-    }
-    st::cp_async_commit();
-
-    const uint32_t sa = smem32 + (c % T::STAGES) * T::STAGE_BYTES;
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      uint32_t bfr[T::NTL][2];
-      if constexpr (T::NTL >= 2) {
-#pragma unroll
-        for (int j = 0; j < T::NTL / 2; ++j) {
-          uint32_t r[4];
-          st::ldmatrix_x4_trans(sa + b_off + (t * KC * T::B_STRIDE + j * 16) * 2, r);
-          bfr[2 * j][0] = r[0]; bfr[2 * j][1] = r[1];
-          bfr[2 * j + 1][0] = r[2]; bfr[2 * j + 1][1] = r[3];
-        }
-      } else {
-        st::ldmatrix_x2_trans(sa + b_off + t * KC * T::B_STRIDE * 2, bfr[0]);
-      }
-      const uint32_t shift = ((t / 3) * T::IW + (t % 3)) * T::A_STRIDE * 2;
-#pragma unroll
-      for (int i = 0; i < T::MT; ++i) {
-        uint32_t af[4];
-        st::ldmatrix_x4(sa + a_off[i] + shift, af);
-#pragma unroll
-        for (int j = 0; j < T::NTL; ++j) st::mma_bf16(acc[i][j], af, bfr[j][0], bfr[j][1]);
-      }
+#pragma unroll 4
+    for (int e = tid; e < 9 * KC * T::BN; e += T::LOADERS) {
+      const int n = e % T::BN, k = (e / T::BN) % KC, t = e / (T::BN * KC);
+      bf16 v = __float2bfloat16_rn(0.f);
+      if (k0 + k < a.K && n0 + n < a.N) v = a.w[((size_t)t * a.K + k0 + k) * a.N + n0 + n];
+      *reinterpret_cast<bf16*>(stage + T::b_off(t, k, n >> 3) + (n & 7) * 2) = v;
     }
   }
-  st::cp_async_wait<0>();
-  __syncthreads();
+}
 
-  // the accumulators as an fp32 [pixel][channel] tile in shared memory
-  float* cs = reinterpret_cast<float*>(smem);
-  {
-    const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-    for (int i = 0; i < T::MT; ++i) {
-      const int mt = wm * T::MT + i, ty = mt / (T::TW / 8), tx = mt % (T::TW / 8);
-      const int p_top = (2 * ty) * T::TW + 8 * tx + g;
-#pragma unroll
-      for (int j = 0; j < T::NTL; ++j) {
-        const int col = (wn * T::NTL + j) * 8 + 2 * t4;
-        *reinterpret_cast<float2*>(&cs[p_top * T::C_STRIDE + col]) =
-            make_float2(acc[i][j][0], acc[i][j][1]);
-        *reinterpret_cast<float2*>(&cs[(p_top + T::TW) * T::C_STRIDE + col]) =
-            make_float2(acc[i][j][2], acc[i][j][3]);
-      }
-    }
-  }
-  __syncthreads();
+template <class T, int MODE>
+__device__ __forceinline__ void load_stage(const ConvArgs& a, unsigned char* stage, int c, int h0,
+                                           int w0, int n0, int tid) {
+  load_input<T, MODE>(a, stage, c, h0, w0, tid);
+  load_weights<T>(a, stage, c, n0, tid);
+}
 
+// The epilogue from the fp32 [pixel][channel] output tile `cs` (C_STRIDE
+// floats a pixel) to device memory, NT threads: forward bias, ReLU, mask
+// and 2x2 pool; backward add, gate and the bf16 store.
+template <class T, bool FWD>
+__device__ __forceinline__ void epilogue(const ConvArgs& a, const float* cs, int h0, int w0,
+                                         int n0, int tid) {
   constexpr int N8 = T::BN / 8;
   const bool vec_n = (a.N & 7) == 0;
   if (FWD) {
@@ -482,16 +565,328 @@ __global__ void __launch_bounds__(T::NT, T::MINB) conv3x3_kernel(const ConvArgs 
 }
 
 template <class T, bool FWD, int MODE>
+__global__ void __launch_bounds__(T::NT, T::MINB) conv3x3_kernel(const ConvArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
+  const int h0 = blockIdx.y * T::TH, w0 = blockIdx.x * T::TW, n0 = blockIdx.z * T::BN;
+  const uint32_t smem32 = st::smem_u32(smem);
+
+  float acc[T::MT][T::NTL][4];
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NTL; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+  // this lane's ldmatrix row addresses (byte offsets inside a stage): A row
+  // lane % 16 of each m16 tile at tap (0, 0), k half lane / 16; B row k
+  uint32_t a_off[T::MT];
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i) {
+    const int mt = wm * T::MT + i, ty = mt / (T::TW / 8), tx = mt % (T::TW / 8);
+    const int r = lane & 15, py = 2 * ty + (r >> 3), px = 8 * tx + (r & 7);
+    a_off[i] = ((py * T::IW + px) * T::A_STRIDE + (lane >> 4) * 8) * 2;
+  }
+  uint32_t b_off;
+  if constexpr (T::NTL >= 2) {
+    const int krow = (lane & 7) + ((lane >> 3) & 1) * 8;
+    b_off = T::A_BYTES + (krow * T::B_STRIDE + wn * T::NTL * 8 + (lane >> 4) * 8) * 2;
+  } else {
+    b_off = T::A_BYTES + ((lane & 15) * T::B_STRIDE + wn * 8) * 2;
+  }
+
+  const int nchunks = (a.K + KC - 1) / KC;
+#pragma unroll
+  for (int s = 0; s < T::STAGES - 1; ++s) {
+    if (s < nchunks) load_stage<T, MODE>(a, smem + s * T::STAGE_BYTES, s, h0, w0, n0, tid);
+    st::cp_async_commit();
+  }
+
+  for (int c = 0; c < nchunks; ++c) {
+    st::cp_async_wait<T::STAGES - 2>();  // chunk c has landed (this thread's copies)
+    __syncthreads();                     // ... everyone's; and chunk c-1 is consumed
+    const int nxt = c + T::STAGES - 1;
+    if (nxt < nchunks) {
+      load_stage<T, MODE>(a, smem + (nxt % T::STAGES) * T::STAGE_BYTES, nxt, h0, w0, n0, tid);
+    }
+    st::cp_async_commit();
+
+    const uint32_t sa = smem32 + (c % T::STAGES) * T::STAGE_BYTES;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      uint32_t bfr[T::NTL][2];
+      if constexpr (T::NTL >= 2) {
+#pragma unroll
+        for (int j = 0; j < T::NTL / 2; ++j) {
+          uint32_t r[4];
+          st::ldmatrix_x4_trans(sa + b_off + (t * KC * T::B_STRIDE + j * 16) * 2, r);
+          bfr[2 * j][0] = r[0]; bfr[2 * j][1] = r[1];
+          bfr[2 * j + 1][0] = r[2]; bfr[2 * j + 1][1] = r[3];
+        }
+      } else {
+        st::ldmatrix_x2_trans(sa + b_off + t * KC * T::B_STRIDE * 2, bfr[0]);
+      }
+      const uint32_t shift = ((t / 3) * T::IW + (t % 3)) * T::A_STRIDE * 2;
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i) {
+        uint32_t af[4];
+        st::ldmatrix_x4(sa + a_off[i] + shift, af);
+#pragma unroll
+        for (int j = 0; j < T::NTL; ++j) st::mma_bf16(acc[i][j], af, bfr[j][0], bfr[j][1]);
+      }
+    }
+  }
+  st::cp_async_wait<0>();
+  __syncthreads();
+
+  // the accumulators as an fp32 [pixel][channel] tile in shared memory
+  float* cs = reinterpret_cast<float*>(smem);
+  {
+    const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int i = 0; i < T::MT; ++i) {
+      const int mt = wm * T::MT + i, ty = mt / (T::TW / 8), tx = mt % (T::TW / 8);
+      const int p_top = (2 * ty) * T::TW + 8 * tx + g;
+#pragma unroll
+      for (int j = 0; j < T::NTL; ++j) {
+        const int col = (wn * T::NTL + j) * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(&cs[p_top * T::C_STRIDE + col]) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<float2*>(&cs[(p_top + T::TW) * T::C_STRIDE + col]) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+      }
+    }
+  }
+  __syncthreads();
+  epilogue<T, FWD>(a, cs, h0, w0, n0, tid);
+}
+
+// The main loop on the warpgroup MMA, warp-specialized. The producer
+// warpgroup stages chunk j into stage j % STAGES once the consumers have
+// released the chunk that stage held: its first thread issues the chunk's
+// TMA loads (the input boxes, forward and bare backward; the weights
+// whenever N % 8 == 0) on the stage's full mbarrier, and all 128 stage what
+// TMA cannot: the backward's prologue through registers, fetched a chunk
+// ahead so that its loads are in flight while the previous chunk's
+// arithmetic and stores run. Each producer thread arrives on the full
+// mbarrier once its stores are fenced for the tensor cores; the first
+// arrives last with the TMA bytes to expect. The two consumer warpgroups
+// wait on the full mbarrier, issue the chunk's 9 taps x PPW patches of
+// m64n128k16, and, once their products of the chunk before are done
+// (wgmma.wait_group 1, so the tensor cores always hold a chunk), release
+// that chunk's stage on its empty mbarrier (one arrival a consumer warp).
+template <class T, int MODE>
+__device__ __forceinline__ void produce(const ConvArgs& a, const CUtensorMap* map_x,
+                                        const CUtensorMap* map_w, unsigned char* smem,
+                                        uint32_t smem32, uint32_t full, uint32_t empty,
+                                        int nchunks, int h0, int w0, int n0, int ptid) {
+  constexpr bool PREFETCH = MODE == STAGED;  // the input through registers, a chunk ahead
+  const bool b_tma = (a.N & 7) == 0;         // 16-byte rows of weights
+  const uint32_t tx = (MODE == COPIED ? 2 * T::A_BOX : 0) + (b_tma ? T::B_BYTES : 0);
+  Raw8 raw[PREFETCH ? A_PER_THREAD<T> : 1];
+  if constexpr (PREFETCH) fetch_input<T>(a, raw, 0, h0, w0, ptid);
+  for (int j = 0; j < nchunks; ++j) {
+    const int s = j % T::STAGES;
+    if (j >= T::STAGES) st::mbar_wait(empty + 8 * s, (j / T::STAGES - 1) & 1);
+    const uint32_t stage = smem32 + s * T::STAGE_BYTES;
+    unsigned char* stage_p = smem + s * T::STAGE_BYTES;
+    if (ptid == 0) {
+      if constexpr (MODE == COPIED) {
+#pragma unroll
+        for (int c8 = 0; c8 < 2; ++c8) {
+          st::tma_load_4d(stage + T::a_off(0, c8), map_x, full + 8 * s, 0, j * 2 + c8, w0 - 1,
+                          h0 - 1);
+        }
+      }
+      if (b_tma) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          st::tma_load_3d(stage + T::b_off(0, 0, half * 8), map_w, full + 8 * s, n0 + half * 64,
+                          j * KC, 0);
+        }
+      }
+    }
+    if constexpr (PREFETCH) {
+      store_input<T>(a, raw, stage_p, ptid);
+      if (j + 1 < nchunks) fetch_input<T>(a, raw, j + 1, h0, w0, ptid);
+    } else if constexpr (MODE != COPIED) {
+      load_input<T, MODE>(a, stage_p, j, h0, w0, ptid);
+    }
+    if (!b_tma) {
+      load_weights<T>(a, stage_p, j, n0, ptid);
+      st::cp_async_commit();
+      st::cp_async_wait<0>();
+    }
+    st::fence_proxy_async();  // this thread's stores, visible to the tensor cores
+    if (ptid == 0) {
+      st::mbar_arrive_expect_tx(full + 8 * s, tx);  // tx-count may dip below 0 until now
+    } else {
+      st::mbar_arrive(full + 8 * s);
+    }
+  }
+}
+
+template <class T, bool FWD, int MODE>
+__global__ void __launch_bounds__(T::NT, 1)
+    conv3x3_wgmma_kernel(const ConvArgs a, const __grid_constant__ CUtensorMap map_x,
+                         const __grid_constant__ CUtensorMap map_w) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wq = warp & 3;  // warpgroup, warp within it
+  const int h0 = blockIdx.y * T::TH, w0 = blockIdx.x * T::TW, n0 = blockIdx.z * T::BN;
+  // the swizzle's 1024-byte atoms need 1024-byte aligned stages
+  const uint32_t smem32 = (st::smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (smem32 - st::smem_u32(smem_raw));
+  const uint32_t full = smem32 + T::BAR_OFF, empty = full + 8 * T::STAGES;
+  const int nchunks = (a.K + KC - 1) / KC;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < T::STAGES; ++s) {
+      st::mbar_init(full + 8 * s, T::LOADERS);
+      st::mbar_init(empty + 8 * s, 4 * T::NWG);
+    }
+    st::mbar_init_fence();
+  }
+  __syncthreads();
+
+  float acc[T::PPW][64];  // written first by the first product (accumulate false)
+  if (wg == T::NWG) {
+    produce<T, MODE>(a, &map_x, &map_w, smem, smem32, full, empty, nchunks, h0, w0, n0,
+                     tid - T::NWG * 128);
+  } else {
+    for (int c = 0; c < nchunks; ++c) {
+      const int slot = c % T::STAGES;
+      st::mbar_wait(full + 8 * slot, (c / T::STAGES) & 1);  // chunk c has landed
+      const uint32_t stage = smem32 + slot * T::STAGE_BYTES;
+#pragma unroll
+      for (int i = 0; i < T::PPW; ++i) st::wgmma_hold(acc[i]);
+      st::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const uint64_t db = st::smem_desc_sw128(stage + T::b_off(t, 0, 0), T::B_HALF, 1024);
+#pragma unroll
+        for (int i = 0; i < T::PPW; ++i) {
+          const int p = wg * T::PPW + i, pr = p / (T::TW / 8), pc = p % (T::TW / 8);
+          const int pix = (pr * 8 + t / 3) * T::IW + pc * 8 + t % 3;
+          const uint64_t da = st::smem_desc(stage + T::a_off(pix, 0), T::A_PLANE, T::IW * 16);
+          st::wgmma_m64n128k16_bf16_tb(acc[i], da, db, c > 0 || t > 0);
+        }
+      }
+      st::wgmma_commit();
+      st::wgmma_wait<1>();  // chunk c - 1's products are done: release its stage
+#pragma unroll
+      for (int i = 0; i < T::PPW; ++i) st::wgmma_hold(acc[i]);
+      if (c > 0 && lane == 0) st::mbar_arrive(empty + 8 * ((c - 1) % T::STAGES));
+    }
+    st::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < T::PPW; ++i) st::wgmma_hold(acc[i]);
+  }
+  __syncthreads();  // every product done, every load consumed: the ring becomes the output tile
+
+  // the accumulators as an fp32 [pixel][channel] tile: row 16 wq + g of
+  // patch p is its pixel (2 wq, g), row + 8 the pixel below
+  float* cs = reinterpret_cast<float*>(smem);
+  if (wg < T::NWG) {
+    const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int i = 0; i < T::PPW; ++i) {
+      const int p = wg * T::PPW + i, pr = p / (T::TW / 8), pc = p % (T::TW / 8);
+      const int p_top = (pr * 8 + 2 * wq) * T::TW + pc * 8 + g;
+#pragma unroll
+      for (int j = 0; j < T::N8; ++j) {
+        const int col = j * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(&cs[p_top * T::C_STRIDE + col]) =
+            make_float2(acc[i][4 * j], acc[i][4 * j + 1]);
+        *reinterpret_cast<float2*>(&cs[(p_top + T::TW) * T::C_STRIDE + col]) =
+            make_float2(acc[i][4 * j + 2], acc[i][4 * j + 3]);
+      }
+    }
+  }
+  __syncthreads();
+  epilogue<T, FWD>(a, cs, h0, w0, n0, tid);
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link against
+// libcuda); null where it is missing.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// The warpgroup tile's TMA maps: the input as (8 channels, K / 8, W, H) in
+// boxes of one 8-channel plane of the haloed tile, and the taps (3, 3, K, N)
+// as (N, K, 9) in boxes of 64 channels x KC rows x 9 taps, 128-byte swizzle.
+template <class T, int MODE>
+bool tensor_maps(const ConvArgs& a, CUtensorMap* map_x, CUtensorMap* map_w) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  if (MODE == COPIED) {
+    const cuuint64_t dims[4] = {8, (cuuint64_t)(a.K / 8), (cuuint64_t)a.W, (cuuint64_t)a.H};
+    const cuuint64_t strides[3] = {16, (cuuint64_t)a.K * 2, (cuuint64_t)a.W * a.K * 2};
+    const cuuint32_t box[4] = {8, 1, T::IW, T::IH};
+    if (encode(map_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(a.x), dims, strides,
+               box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+        CUDA_SUCCESS) {
+      return false;
+    }
+  }
+  if ((a.N & 7) == 0) {
+    const cuuint64_t dims[3] = {(cuuint64_t)a.N, (cuuint64_t)a.K, 9};
+    const cuuint64_t strides[2] = {(cuuint64_t)a.N * 2, (cuuint64_t)a.K * a.N * 2};
+    const cuuint32_t box[3] = {64, KC, 9};
+    if (encode(map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(a.w), dims, strides,
+               box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+        CUDA_SUCCESS) {
+      return false;
+    }
+  }
+  return true;
+}
+
+template <class T, bool FWD, int MODE>
 int launch(const ConvArgs& a, cudaStream_t stream) {
+  const void* kernel = nullptr;
+  if constexpr (T::WGMMA) {
+    kernel = reinterpret_cast<const void*>(conv3x3_wgmma_kernel<T, FWD, MODE>);
+  } else {
+    kernel = reinterpret_cast<const void*>(conv3x3_kernel<T, FWD, MODE>);
+  }
   static bool configured = false;  // per instantiation: allow its dynamic shared memory
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        conv3x3_kernel<T, FWD, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((a.W + T::TW - 1) / T::TW, (a.H + T::TH - 1) / T::TH, (a.N + T::BN - 1) / T::BN);
-  conv3x3_kernel<T, FWD, MODE><<<grid, T::NT, T::SMEM, stream>>>(a);
+  if constexpr (T::WGMMA) {
+    CUtensorMap map_x = {}, map_w = {};
+    if (!tensor_maps<T, MODE>(a, &map_x, &map_w)) return static_cast<int>(cudaErrorInvalidValue);
+    conv3x3_wgmma_kernel<T, FWD, MODE><<<grid, T::NT, T::SMEM, stream>>>(a, map_x, map_w);
+  } else {
+    conv3x3_kernel<T, FWD, MODE><<<grid, T::NT, T::SMEM, stream>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -523,12 +918,14 @@ int dispatch(const ConvArgs& a, int tile, cudaStream_t stream) {
 template <class T>
 void tile_info(int* out) {
   out[0] = T::TH; out[1] = T::TW; out[2] = T::BN; out[3] = T::NT; out[4] = T::SMEM;
+  out[5] = T::MINB; out[6] = T::WGMMA;
 }
 
 }  // namespace
 
-// (TH, TW, BN, threads, dynamic shared-memory bytes) of tile configuration
-// `tile` into out[0..4]; the wrapper's chooser is held against it.
+// (TH, TW, BN, threads, dynamic shared-memory bytes, blocks per SM it is
+// built for, whether it runs on wgmma) of tile configuration `tile` into
+// out[0..6]; the wrapper's chooser is held against it.
 ST_EXPORT int st_conv3x3_tile_info(int tile, int* out) {
   switch (tile) {
     case 0: tile_info<Tile0>(out); return 0;

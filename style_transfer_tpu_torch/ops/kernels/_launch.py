@@ -6,11 +6,13 @@ stream, raises if the launch was refused, and adds one to the caller's
 :class:`~style_transfer_tpu_torch.ops.kernels._build.LaunchCount` under the
 launcher's name and the shape its operations and bytes follow from:
 
-- ``conv3x3_fwd``: ``(H, W, K, N, y, mask, pool)``, K input and N output
-  channels, and which outputs are written;
+- ``conv3x3_fwd``: ``(H, W, K, N, y, mask, pool, tile)``, K input and N
+  output channels, which outputs are written, and the tile configuration
+  the launch took (a key of :data:`CONV_TILES`; :data:`CONV_WGMMA_TILE` is
+  the warpgroup-MMA tile);
 - ``conv3x3_bwd_data``: ``(H, W, K, N, unpool, dy, in_mask, pre_add,
-  pre_gate, add, gate)``, K the cotangent's channels and N the output's,
-  and which operands are given;
+  pre_gate, add, gate, tile)``, K the cotangent's channels and N the
+  output's, which operands are given, and the tile as above;
 - ``gram``: ``(M, C, W, clo, chi)``, M the rows summed (a row window's
   span), and the column window (0, 0, 0: none);
 - ``gram_fs``: ``(M, C, W, clo, chi, relu_gate, bf16 out)``;
@@ -39,23 +41,35 @@ MAX_SHARED_BYTES = 232448
 CONV_KC = 16
 
 #: Tile configurations of ``csrc/conv3x3.cu``: index -> (pixel rows, pixel
-#: columns, output channels, warps, pipeline stages). ``chip_smoke.py`` holds
-#: the table against the built library (``st_conv3x3_tile_info``).
+#: columns, output channels, warps, pipeline stages, blocks per SM it is
+#: built for). ``chip_smoke.py`` holds the table against the built library
+#: (``st_conv3x3_tile_info``).
 CONV_TILES = {
-    0: (8, 16, 128, 8, 2),
-    1: (16, 16, 64, 8, 3),
-    2: (8, 8, 64, 4, 2),
-    3: (16, 16, 8, 8, 2),
+    0: (16, 16, 128, 12, 4, 1),
+    1: (16, 16, 64, 8, 3, 2),
+    2: (8, 8, 64, 4, 2, 4),
+    3: (16, 16, 8, 8, 2, 2),
 }
+#: The tile on the warpgroup MMA (wgmma): two consumer warpgroups and one
+#: producer warpgroup, one block an SM; the others run ``mma.sync``.
+CONV_WGMMA_TILE = 0
 
 
 def conv_tile_smem(tile: int) -> int:
     """Dynamic shared memory of a block of tile configuration ``tile``, in
-    bytes: the larger of its pipeline stages (haloed bf16 input tile at 48
-    bytes a pixel plus the 9 x 16 weight rows, padded by 16 bytes where they
-    are wider than one ldmatrix row) and the fp32 output tile of the
-    epilogue (rows padded by 32 bytes)."""
-    th, tw, bn, _, stages = CONV_TILES[tile]
+    bytes: the larger of its pipeline stages and the fp32 output tile of the
+    epilogue (rows padded by 32 bytes). An ``mma.sync`` stage holds the
+    haloed bf16 input tile at 48 bytes a pixel and the 9 x 16 weight rows,
+    padded by 16 bytes where they are wider than one ldmatrix row. A
+    warpgroup stage holds the same input at 32 bytes a pixel (two 8-channel
+    planes), rounded up to 1024 bytes, and the weights unpadded in 1024-byte
+    swizzle atoms; two 8-byte mbarriers a stage follow, and the kernel asks
+    1024 bytes more to align its start."""
+    th, tw, bn, _, stages, _ = CONV_TILES[tile]
+    if tile == CONV_WGMMA_TILE:
+        a_bytes = -(-(th + 2) * (tw + 2) * CONV_KC * 2 // 1024) * 1024
+        b_bytes = 9 * CONV_KC * bn * 2
+        return max(stages * (a_bytes + b_bytes), th * tw * (bn + 8) * 4) + 16 * stages + 1024
     a_bytes = (th + 2) * (tw + 2) * (CONV_KC + 8) * 2
     b_bytes = 9 * CONV_KC * (bn if bn == 8 else bn + 8) * 2
     return max(stages * (a_bytes + b_bytes), th * tw * (bn + 8) * 4)
@@ -64,25 +78,29 @@ def conv_tile_smem(tile: int) -> int:
 def conv_blocks(tile: int, h: int, w: int, n: int) -> int:
     """Blocks of the grid that tile configuration ``tile`` gives an (h, w)
     image with ``n`` output channels."""
-    th, tw, bn, _, _ = CONV_TILES[tile]
+    th, tw, bn = CONV_TILES[tile][:3]
     return -(-h // th) * -(-w // tw) * -(-n // bn)
 
 
 def conv_tile(h: int, w: int, n: int) -> int:
-    """The tile configuration for an (h, w) image and ``n`` output channels:
-    the n8 tile for up to 8 channels (conv1_1's backward-data), else the
-    128-channel tile for more than 64 channels and the 16x16-pixel 64-channel
-    tile otherwise — unless that leaves more than a quarter of the card's SMs
-    without a block, in which case the small 8x8-pixel 64-channel tile fills
-    it (the deep layers of small scales). On the H100, 128 blocks of the
-    large tile beat 512 of the small one at 128x128 with 128 channels and
-    about tie it at 64x64 with 512, while 32 blocks (32x32 with 512) lose
-    clearly to 128 small ones (``chip_smoke.py`` prints the rate of every
-    conv shape)."""
+    """The tile configuration for an (h, w) image and ``n`` output channels,
+    by shape alone: the n8 tile for up to 8 channels (conv1_1's
+    backward-data); for more than 64 channels the warpgroup tile
+    (:data:`CONV_WGMMA_TILE`, 16x16 pixels x 128 channels, one block an SM)
+    wherever its grid gives more than a quarter of the card's SMs a block,
+    else the small 8x8-pixel 64-channel tile; for 9-64 channels the
+    16x16-pixel 64-channel tile, unless that leaves more than a quarter of
+    the SMs without a block, where the small tile fills them. On the H100
+    (``chip_smoke.py``'s ``conv_rates`` times each wide shape on both
+    tiles) the warpgroup tile wins from 64 blocks up (64x64 with 512
+    channels), and at 32 blocks and fewer (the 256 px scale's deep layers,
+    conv5_1 at 32x32) the small tile's 8-16 times as many blocks are as
+    fast or faster."""
     if n <= 8:
         return 3
-    tile = 0 if n > 64 else 1
-    return tile if 4 * conv_blocks(tile, h, w, n) >= 3 * SM_COUNT else 2
+    if n > 64:
+        return CONV_WGMMA_TILE if 4 * conv_blocks(CONV_WGMMA_TILE, h, w, n) > SM_COUNT else 2
+    return 1 if 4 * conv_blocks(1, h, w, n) >= 3 * SM_COUNT else 2
 
 
 #: Rows of F staged per step by ``csrc/gram.cu`` (its ``GR``); a chunk of
@@ -133,14 +151,24 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Tuple[int, .
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _tile(tile: Optional[int], h: int, w: int, n: int) -> int:
+    if tile is None:
+        return conv_tile(h, w, n)
+    if tile not in CONV_TILES:
+        raise ValueError(f"no tile configuration {tile}; the table has {sorted(CONV_TILES)}")
+    return tile
+
+
 def conv3x3_fwd(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, count: LaunchCount,
-    y: bool = False, mask: bool = False, pool: bool = False,
+    y: bool = False, mask: bool = False, pool: bool = False, tile: Optional[int] = None,
 ):
     """relu(conv3x3_same(x, w) + b) for x (H, W, K) bf16, w (3, 3, K, N) bf16,
     b (N,) bf16. Returns ``(y, mask, pool)``, None where not requested: the
     bf16 ReLU output (H, W, N), its int8 mask ``pre > 0`` (H, W, N), and its
-    bf16 2x2 average pool (H/2, W/2, N)."""
+    bf16 2x2 average pool (H/2, W/2, N). ``tile`` forces a tile
+    configuration in place of :func:`conv_tile`'s (the edge cases run every
+    tile at every size)."""
     h, wd, k = x.shape
     n = w.shape[3]
     _require(x, "x", torch.bfloat16, (h, wd, k))
@@ -156,13 +184,14 @@ def conv3x3_fwd(
         torch.empty((h // 2, wd // 2, n), dtype=torch.bfloat16, device=x.device)
         if pool else None
     )
+    tile = _tile(tile, h, wd, n)
     lib = library()
     err = lib.st_conv3x3_fwd(
         _ptr(x), _ptr(w), _ptr(b), _ptr(out_y), _ptr(out_m), _ptr(out_p),
-        h, wd, k, n, conv_tile(h, wd, n), _stream(),
+        h, wd, k, n, tile, _stream(),
     )
     _check_launch(lib, err, "conv3x3_fwd")
-    count.add("conv3x3_fwd", (h, wd, k, n, y, mask, pool))
+    count.add("conv3x3_fwd", (h, wd, k, n, y, mask, pool, tile))
     return out_y, out_m, out_p
 
 
@@ -184,6 +213,7 @@ def conv3x3_bwd_data(
     in_mask: Optional[torch.Tensor] = None, unpool: bool = False,
     pre_add: Optional[torch.Tensor] = None, pre_gate: Optional[torch.Tensor] = None,
     add: Optional[torch.Tensor] = None, gate: Optional[torch.Tensor] = None,
+    tile: Optional[int] = None,
 ) -> torch.Tensor:
     """Transposed 3x3 SAME conv of a cotangent: (H, W, N) bf16 out of ``dy``
     (H, W, K) — or (H/2, W/2, K) when ``unpool``; None reads as zero — with
@@ -192,7 +222,7 @@ def conv3x3_bwd_data(
     gate, ``+ pre_add`` (fp32, (H, W, K)), zero where ``pre_gate`` (bf16,
     (H, W, K)) <= 0, and one bf16 rounding when ``pre_add`` or ``pre_gate``
     is given. Epilogue: ``+ add`` (fp32), then the ReLU gate ``gate > 0``,
-    then the bf16 store."""
+    then the bf16 store. ``tile`` as in :func:`conv3x3_fwd`."""
     h, wd = hw
     k, n = w_t.shape[2], w_t.shape[3]
     if unpool and (h % 2 or wd % 2):
@@ -211,15 +241,16 @@ def conv3x3_bwd_data(
     if gate is not None:
         _require(gate, "gate", torch.bfloat16, (h, wd, n))
     out = torch.empty((h, wd, n), dtype=torch.bfloat16, device=w_t.device)
+    tile = _tile(tile, h, wd, n)
     lib = library()
     err = lib.st_conv3x3_bwd_data(
         _ptr(dy), _ptr(in_mask), int(unpool), _ptr(pre_add), _ptr(pre_gate), _ptr(w_t),
-        _ptr(add), _ptr(gate), _ptr(out), h, wd, k, n, conv_tile(h, wd, n), _stream(),
+        _ptr(add), _ptr(gate), _ptr(out), h, wd, k, n, tile, _stream(),
     )
     _check_launch(lib, err, "conv3x3_bwd_data")
     count.add("conv3x3_bwd_data", (h, wd, k, n, unpool, dy is not None, in_mask is not None,
                                    pre_add is not None, pre_gate is not None, add is not None,
-                                   gate is not None))
+                                   gate is not None, tile))
     return out
 
 

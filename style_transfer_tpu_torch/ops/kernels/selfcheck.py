@@ -5,10 +5,15 @@ conv3x3_fwd``, ``conv3x3_bwd_data``, ``gram``, ``gram_fs``) are called
 directly, one option at a time, at sizes that are ragged against every tile
 (10x6, 26x12, 62x90, 128x136), with the odd channel counts of conv1_1
 (K = 3, N = 3), and Grams from 60 to 262144 rows with and without a column
-window. Each case runs the kernel in bf16, the same arithmetic in plain
-PyTorch in bf16, and in fp32 on the same bf16-valued inputs (TF32 off); the
-caller holds the errors to ``tolerances.within``. A case also launches its
-kernel a second time and reports whether the outputs are bit-equal.
+window. Each conv case runs once on the tile the chooser gives it (at
+these ragged sizes always a small ``mma.sync`` tile) and once more on every
+tile configuration that serves its output channels, forced through the
+launcher's ``tile`` argument (``tile<i>:<case>``), so the warpgroup tile
+meets the ragged edges, K = 3 and N = 3 too. Each case runs the kernel in
+bf16, the same arithmetic in plain PyTorch in bf16, and in fp32 on the same
+bf16-valued inputs (TF32 off); the caller holds the errors to
+``tolerances.within``. A case also launches its kernel a second time and
+reports whether the outputs are bit-equal.
 
 The one-pass block-1 kernels of ``csrc/block1.cu`` run through their
 wrappers (``block1.block1_full``, ``block1_tail``) under autograd at the same
@@ -78,6 +83,15 @@ def conv_bwd_cases():
     return small + large + wide
 
 
+def forced_conv_cases():
+    """Every conv case again on every tile configuration that serves its
+    output channels (the n8 tile serves up to 8), forced past the chooser,
+    which sends these ragged sizes to the small tiles: ``tile<i>:<case>``."""
+    return [f"tile{t}:{c}" for t in sorted(_launch.CONV_TILES)
+            for c in conv_fwd_cases() + conv_bwd_cases()
+            if _launch.CONV_TILES[t][2] > 8 or int(c.rsplit("to", 1)[1]) <= 8]
+
+
 def gram_cases():
     return [f"{kind}-{m}x{c}-{'window' if win else 'all'}"
             for kind in ("gram", "fs32", "fs16", "fs16gated") for (m, _, _, _) in GRAM_ROWS
@@ -110,7 +124,7 @@ def _entry(what, kernel, plain, ref, tol):
             "max_abs": float((kernel.float() - ref.float()).abs().max())}
 
 
-def run_conv_fwd(name: str, dev) -> dict:
+def run_conv_fwd(name: str, dev, tile=None) -> dict:
     """y, mask and pool of one forward case: errors and the run-to-run check."""
     _, size, chans = name.split("-")
     h, w = (int(v) for v in size.split("x"))
@@ -120,8 +134,8 @@ def run_conv_fwd(name: str, dev) -> dict:
     wt = (torch.randn(3, 3, k, n, generator=gen, device=dev) * (2.0 / (9 * k)) ** 0.5).to(bf)
     b = (0.1 * torch.randn(n, generator=gen, device=dev)).to(bf)
     count = LaunchCount()
-    outs = [_launch.conv3x3_fwd(x, wt, b, y=True, mask=True, pool=True, count=count)
-            for _ in range(2)]
+    outs = [_launch.conv3x3_fwd(x, wt, b, y=True, mask=True, pool=True, count=count,
+                                tile=tile) for _ in range(2)]
     y, mask, pool = outs[0]
     pre32 = _conv(x.float(), wt.float()) + b.float()
     pre16 = _conv(x, wt) + b
@@ -138,7 +152,7 @@ def run_conv_fwd(name: str, dev) -> dict:
             "run_to_run_equal": same, "launches": count.n}
 
 
-def run_conv_bwd(name: str, dev) -> dict:
+def run_conv_bwd(name: str, dev, tile=None) -> dict:
     """One backward-data case: the prologue and epilogue options of its mode."""
     _, mode, size, chans = name.split("-")
     h, w = (int(v) for v in size.split("x"))
@@ -162,7 +176,7 @@ def run_conv_bwd(name: str, dev) -> dict:
     count = LaunchCount()
     outs = [_launch.conv3x3_bwd_data(dy, w_t, hw=(h, w), count=count, in_mask=in_mask,
                                      unpool=unpool, pre_add=pre_add, pre_gate=pre_gate,
-                                     add=add, gate=gate) for _ in range(2)]
+                                     add=add, gate=gate, tile=tile) for _ in range(2)]
 
     def plain(dt):
         v = torch.zeros(h, w, k, device=dev, dtype=torch.float32)
@@ -345,10 +359,14 @@ def run_case(name: str, dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     if name.startswith(("sse-", "tv-")):
         return run_loss(name, dev)
+    tile = None
+    if name.startswith("tile"):
+        tile, name = name.split(":")
+        tile = int(tile[4:])
     if name.startswith("fwd-"):
-        return run_conv_fwd(name, dev)
+        return run_conv_fwd(name, dev, tile)
     if name.startswith("bwd-"):
-        return run_conv_bwd(name, dev)
+        return run_conv_bwd(name, dev, tile)
     if name.startswith("block1"):
         return run_block1(name, dev)
     if name.startswith("col2im-"):
@@ -357,7 +375,8 @@ def run_case(name: str, dev) -> dict:
 
 
 def all_cases():
-    return conv_fwd_cases() + conv_bwd_cases() + gram_cases() + block1_cases() + loss_cases()
+    return (conv_fwd_cases() + conv_bwd_cases() + forced_conv_cases() + gram_cases()
+            + block1_cases() + loss_cases())
 
 
 def loss_model_matches(lib) -> bool:
@@ -392,13 +411,14 @@ def block1_model_matches(lib) -> bool:
 
 def tile_table_matches(lib) -> bool:
     """Whether the wrapper's tile table (``_launch.CONV_TILES``,
-    ``conv_tile_smem``) is the built library's."""
+    ``conv_tile_smem``, ``CONV_WGMMA_TILE``) is the built library's."""
     import ctypes
 
-    for tile, (th, tw, bn, warps, _) in _launch.CONV_TILES.items():
-        got = (ctypes.c_int * 5)()
+    for tile, (th, tw, bn, warps, _, minb) in _launch.CONV_TILES.items():
+        got = (ctypes.c_int * 7)()
         if lib.st_conv3x3_tile_info(tile, got):
             return False
-        if list(got) != [th, tw, bn, 32 * warps, _launch.conv_tile_smem(tile)]:
+        if list(got) != [th, tw, bn, 32 * warps, _launch.conv_tile_smem(tile), minb,
+                         int(tile == _launch.CONV_WGMMA_TILE)]:
             return False
     return True

@@ -5,8 +5,9 @@ the card (``tests/test_torch_cuda.py``). What decides their operands, tiles
 and scratch lives in Python and is tested here without a GPU: the
 backward-data weight layout against a numpy reference and its inverse, the
 once-per-tensor weight cache, the tile chooser and its shared-memory model
-for every conv shape of VGG-19 at scales 256 to 8192 wide, and the Gram's
-rows per chunk.
+for every conv shape of VGG-19 at scales 256 to 8192 wide (the warpgroup
+tile for every wide conv of the 2048^2 chain), the forced-tile edge cases,
+and the Gram's rows per chunk.
 """
 
 import numpy as np
@@ -123,28 +124,111 @@ def test_weight_cache_is_bounded_per_device():
 
 @pytest.mark.parametrize("tile", sorted(_launch.CONV_TILES))
 def test_tile_shared_memory_fits_two_blocks_on_an_sm(tile):
+    """Each tile fits the blocks per SM it declares (``MINB``) in an SM's
+    shared memory: the ``mma.sync`` tiles two or more, the warpgroup tile
+    one (its ring of four stages takes 189 KB)."""
     smem = _launch.conv_tile_smem(tile)
     assert 0 < smem <= _launch.MAX_SHARED_BYTES
-    # two blocks (and 1 KB the CUDA runtime reserves for each) share an SM's 228 KB
-    assert 2 * (smem + 1024) <= 228 * 1024
-    th, tw, bn, warps, stages = _launch.CONV_TILES[tile]
-    assert th % 2 == 0 and tw % 8 == 0 and stages >= 2
-    assert (th * tw // 16) * max(bn // 8, 1) % warps == 0  # whole MMA tiles per warp
+    th, tw, bn, warps, stages, minb = _launch.CONV_TILES[tile]
+    # MINB blocks (and 1 KB the CUDA runtime reserves for each) share an SM's 228 KB
+    assert minb * (smem + 1024) <= 228 * 1024
+    if tile == _launch.CONV_WGMMA_TILE:
+        # two consumer warpgroups of m64n128 tiles and a producer warpgroup
+        assert minb == 1 and warps == 12 and bn == 128
+        assert th % 8 == 0 and tw % 8 == 0 and (th * tw // 64) % 2 == 0  # 8x8 patches each
+        assert stages >= 3  # one stage in flight, one ready, one loading
+    else:
+        assert minb >= 2
+        assert th % 2 == 0 and tw % 8 == 0 and stages >= 2
+        assert (th * tw // 16) * max(bn // 8, 1) % warps == 0  # whole MMA tiles per warp
+
+
+def test_wgmma_tile_shared_memory_is_its_ring():
+    """The warpgroup tile's shared memory: four stages of the haloed 18x18
+    input at 32 bytes a pixel (rounded up to 1024 bytes) and the nine taps'
+    16 x 128 weights, larger than its fp32 256 x 136 output tile, then two
+    mbarriers a stage and 1024 bytes to align the swizzle atoms."""
+    stage = 11 * 1024 + 9 * 16 * 128 * 2
+    assert 18 * 18 * 32 <= 11 * 1024 and stage % 1024 == 0
+    assert _launch.conv_tile_smem(_launch.CONV_WGMMA_TILE) == 4 * stage + 4 * 16 + 1024 == 193600
+    assert 256 * 136 * 4 < 4 * stage
+
+
+def _chain_2048():
+    """(h, w, k, n) of every forward and backward-data launch of the 2048^2
+    chain whose output has more than 64 channels."""
+    out = []
+    for pools, cin, cout in VGG_CONVS:
+        s = 2048 >> pools
+        out += [(s, s, cin, cout), (s, s, cout, cin)]
+    return [shape for shape in out if shape[3] > 64]
+
+
+def test_every_wide_conv_of_the_2048_chain_takes_the_wgmma_tile():
+    shapes = _chain_2048()
+    assert {s[0] for s in shapes} == {1024, 512, 256, 128}
+    for h, w, _, n in shapes:
+        assert _launch.conv_tile(h, w, n) == _launch.CONV_WGMMA_TILE, (h, w, n)
 
 
 @pytest.mark.parametrize("h,w,k,n", _conv_shapes())
 def test_tile_chooser_covers_every_vgg_shape(h, w, k, n):
     tile = _launch.conv_tile(h, w, n)
-    th, tw, bn, _, _ = _launch.CONV_TILES[tile]
+    th, tw, bn = _launch.CONV_TILES[tile][:3]
     assert _launch.conv_tile_smem(tile) <= _launch.MAX_SHARED_BYTES
     blocks = _launch.conv_blocks(tile, h, w, n)
     assert blocks >= 1
     assert th * -(-h // th) >= h and tw * -(-w // tw) >= w and bn * -(-n // bn) >= n
     assert -(-h // th) <= 65535 and -(-n // bn) <= 65535  # gridDim.y / .z
+    wg_blocks = _launch.conv_blocks(_launch.CONV_WGMMA_TILE, h, w, n)
     if n <= 8:
         assert bn == 8  # conv1_1's backward-data does not pay for 64 columns
-    elif 4 * blocks < 3 * _launch.SM_COUNT:
-        assert tile == 2  # nothing smaller to fill the card with
+    elif n > 64:
+        # the warpgroup tile where more than a quarter of the SMs get a block
+        want = _launch.CONV_WGMMA_TILE if 4 * wg_blocks > _launch.SM_COUNT else 2
+        assert tile == want
+    elif 4 * _launch.conv_blocks(1, h, w, n) < 3 * _launch.SM_COUNT:
+        assert tile == 2  # the small tile fills the card
+    else:
+        assert tile == 1
+    if tile == _launch.CONV_WGMMA_TILE:
+        assert n > 64 and 4 * blocks > _launch.SM_COUNT
+
+
+@pytest.mark.parametrize("h,w,n", [(16, 16, 512), (32, 32, 512), (64, 64, 256), (8, 512, 128)])
+def test_small_grids_keep_the_mma_sync_tiles(h, w, n):
+    """Where the warpgroup tile would leave three quarters of the SMs or more
+    without a block (the deep layers of the ladder's small scales), the
+    small 8x8-pixel tile fills the card."""
+    assert 4 * _launch.conv_blocks(_launch.CONV_WGMMA_TILE, h, w, n) <= _launch.SM_COUNT
+    assert _launch.conv_tile(h, w, n) == 2
+
+
+def test_forced_tile_is_checked():
+    assert _launch._tile(None, 1024, 1024, 128) == _launch.conv_tile(1024, 1024, 128)
+    for tile in _launch.CONV_TILES:
+        assert _launch._tile(tile, 10, 6, 64) == tile
+    with pytest.raises(ValueError, match="no tile configuration"):
+        _launch._tile(len(_launch.CONV_TILES), 10, 6, 64)
+
+
+def test_selfcheck_forces_every_conv_case_on_every_tile():
+    from style_transfer_tpu_torch.ops.kernels import selfcheck
+
+    forced = selfcheck.forced_conv_cases()
+    base = selfcheck.conv_fwd_cases() + selfcheck.conv_bwd_cases()
+    by_tile = {}
+    for name in forced:
+        tag, case = name.split(":")
+        assert case in base
+        by_tile.setdefault(int(tag[len("tile"):]), []).append(case)
+    assert set(by_tile) == set(_launch.CONV_TILES)
+    for tile, cases in by_tile.items():
+        if _launch.CONV_TILES[tile][2] > 8:
+            assert cases == base  # every size and mode, ragged edges included
+        else:
+            assert cases and all(c.endswith("to3") for c in cases)
+    assert set(forced) <= set(selfcheck.all_cases())
 
 
 @pytest.mark.parametrize("c", [64, 128, 256, 512])

@@ -21,6 +21,8 @@ an absolute limit per output, and no less accurate than the plain version
 run in bf16.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -212,6 +214,45 @@ def test_cuda_tile_table_is_the_built_librarys(cuda_device):
     from style_transfer_tpu_torch.ops.kernels import _build
 
     assert selfcheck.tile_table_matches(_build.library())
+
+
+@pytest.mark.cuda
+def test_cuda_every_wide_conv_of_a_2048_step_takes_the_wgmma_tile(cuda_device):
+    """A 2048^2 Adam chunk of two steps, recorded from its dispatch's start
+    to its end (``trace.listen``): every conv launch with more than 64
+    output channels, forward and backward-data, took the warpgroup tile
+    (the last field of its counted shape), the others an ``mma.sync`` tile,
+    and the step launched the same convs as the chain's 26 a step."""
+    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig, trace
+    from style_transfer_tpu_torch.ops.kernels import _launch
+
+    rng = np.random.RandomState(0)
+    content = rng.rand(2048, 2048, 3).astype(np.float32)
+    style = rng.rand(1024, 1024, 3).astype(np.float32)
+    st = StyleTransfer(device=cuda_device)
+    steps, stack = 2, contextlib.ExitStack()
+
+    def listener(phase, name, attrs):
+        if name == "dispatch":
+            if phase == "start":
+                trace.clear()
+                stack.enter_context(trace.recording())
+            else:
+                stack.close()
+
+    handle = trace.listen(listener)
+    try:
+        st.stylize(content, style, StylizeConfig(size=2048, min_scale=2048, iterations=(steps,),
+                                                 chunk_size=steps))
+    finally:
+        handle.remove()
+    convs = {shape: n for (_, kernel, shape), n in trace.counts().items()
+             if kernel in ("conv3x3_fwd", "conv3x3_bwd_data")}
+    wide = {shape: n for shape, n in convs.items() if shape[3] > 64}
+    assert sum(convs.values()) == 26 * steps and sum(wide.values()) % steps == 0
+    assert all(shape[-1] == _launch.CONV_WGMMA_TILE for shape in wide), sorted(wide)
+    assert all(shape[-1] != _launch.CONV_WGMMA_TILE for shape in convs if shape not in wide)
+    assert {shape[0] for shape in wide} == {1024, 512, 256, 128}
 
 
 @pytest.mark.cuda
