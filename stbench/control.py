@@ -34,10 +34,10 @@ def control_numbers(run, capture, content, style, details: dict = None) -> dict:
     from stbench.judge import control_capture, judge
     from stbench.reference.objective import fp8
 
-    cap = control_capture(capture, run.fields, content, style, run.params, run.mean, run.std,
-                          run.device, fp8)
-    return judge(run.fields, cap, content, style, run.params, run.mean, run.std, run.device,
-                 details)
+    cap = control_capture(run.arch, capture, run.fields, content, style, run.params, run.mean,
+                          run.std, run.device, fp8)
+    return judge(run.arch, run.fields, cap, content, style, run.params, run.mean, run.std,
+                 run.device, details)
 
 
 def main(argv=None, *, root: Path = manifest.ROOT, device=None) -> int:

@@ -2,8 +2,10 @@
 takes around it, and what the loops record for the metrics.
 
 The program is ``style_transfer_tpu_torch.api.StyleTransfer`` on weights
-drawn from the seed; every run goes through ``StyleTransfer.stylize``, and
-what the comparison judges comes from its progress events
+that the configuration's architecture draws from the seed, built with the
+configuration's ``program`` arguments (the program infers the architecture
+from the weights' names); every run goes through ``StyleTransfer.stylize``,
+and what the comparison judges comes from its progress events
 (:mod:`stbench.capture`). The benchmark's one hook into the program's
 internals is :func:`watch_dispatch`: it tells the loops where each chunk is
 queued, so that a steady window opens at the end of a call's first chunk
@@ -62,6 +64,7 @@ class Run:
         self.cuda = device.type == "cuda"
         self.fields = cell.stylize()
         self.wl = cell.workload
+        self.arch = cell.arch
         self.kind = torch.cuda.get_device_name(device) if self.cuda else "cpu"
         self.data: Dict = {"loop": self.wl["loop"],
                            "peak_flops": flops.peaks(self.kind).get("bf16_flops_per_s")}
@@ -80,10 +83,10 @@ class Run:
         from style_transfer_tpu_torch.api import StyleTransfer
 
         cfg = self.cell.config
-        self.params = inputs.vgg19_weights(self.seed, self.device, float(cfg["bias_std"]))
+        self.params = self.arch.weights(self.seed, self.device, cfg)
         self.mean, self.std = inputs.IMAGENET_MEAN, inputs.IMAGENET_STD
-        self.st = StyleTransfer(self.params, mean=self.mean, std=self.std,
-                                pooling=cfg["pooling"], device=self.device)
+        self.st = StyleTransfer(self.params, mean=self.mean, std=self.std, device=self.device,
+                                **cfg.get("program", {}))
         span = {}
 
         def before():

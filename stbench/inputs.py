@@ -1,19 +1,19 @@
-"""Weights and images drawn from a run's seed, on the run's device.
+"""Weights' generators and images drawn from a run's seed, on the run's device.
 
-Both sides of the comparison get these same tensors: the program through
+Both sides of the comparison get the same tensors: the program through
 ``StyleTransfer(params, mean, std)`` and ``stylize(content, style)``, the
 reference through its own :class:`~stbench.reference.objective.Objective`.
+The weights are the configuration's architecture's draw
+(``stbench/arch/<arch>.py``, ``weights``) on :func:`weights_generator`.
 Each draw is a few large calls on a ``torch.Generator`` of the device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
-
-from stbench.reference.objective import BLOCKS, CONV_NAMES
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -28,24 +28,10 @@ def _generator(device, seed: int, stream: int, index: int = 0) -> torch.Generato
     return g
 
 
-def vgg19_weights(seed: int, device, bias_std: float) -> Dict[str, Dict[str, torch.Tensor]]:
-    """He-normal kernels (HWIO, std sqrt(2 / (9 cin))) and normal biases of
-    VGG-19's sixteen convolutions, float32, from one draw of each."""
-    shapes = []
-    cin = 3
-    for n, c in BLOCKS:
-        for _ in range(n):
-            shapes.append((cin, c))
-            cin = c
-    g = _generator(device, seed, _WEIGHTS)
-    kernels = torch.randn(sum(9 * a * b for a, b in shapes), generator=g, device=device)
-    biases = torch.randn(sum(b for _, b in shapes), generator=g, device=device) * bias_std
-    params, ko, bo = {}, 0, 0
-    for name, (a, b) in zip(CONV_NAMES, shapes):
-        k = kernels[ko:ko + 9 * a * b].view(3, 3, a, b) * (2.0 / (9 * a)) ** 0.5
-        params[name] = {"kernel": k, "bias": biases[bo:bo + b]}
-        ko, bo = ko + 9 * a * b, bo + b
-    return params
+def weights_generator(seed: int, device) -> torch.Generator:
+    """The generator of a seed's weights, on ``device``: an architecture
+    draws all its weights from it, in few large calls."""
+    return _generator(device, seed, _WEIGHTS)
 
 
 def image(seed: int, index: int, hw: Tuple[int, int], device, stream: int = 0) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """The comparison that decides ``correct``: the plain float32 reference
 judges what one ``stylize`` call reported (a :class:`~stbench.capture.Capture`).
 
-The reference makes its own targets and start images from the same seeded
+The reference (the Gatys objective on the configuration's architecture,
+``arch``) makes its own targets and start images from the same seeded
 weights and uint8 images the program was given, and takes its own Adam
 steps; it reads the program's states only to start from them or to judge
 them. Per scale, worst over the scales:
@@ -82,14 +83,14 @@ def _targets(obj: Objective, fields: dict, c01, s01, style_hw, hw):
         s01, R.style_size(style_hw, hw, fields.get("style_scale", 1.0))))
 
 
-def judge(fields: dict, capture: Capture, content: torch.Tensor, style: torch.Tensor,
+def judge(arch, fields: dict, capture: Capture, content: torch.Tensor, style: torch.Tensor,
           params, mean, std, device, details: Optional[dict] = None) -> Dict[str, float]:
     """The numbers compared, each worst over the scales; ``details``, where
     given, gets each scale's raw readings."""
     opt = fields["optimizer"]
     out = dict.fromkeys(NUMBERS, 0.0)
     with fp32():
-        obj = Objective(params, mean, std, fields)
+        obj = Objective(arch, params, mean, std, fields)
         c01, s01 = R.from_u8(content.to(device)), R.from_u8(style.to(device))
         for (hw, _), src in zip(capture.scales, capture.sources()):
             tg = _targets(obj, fields, c01, s01, tuple(style.shape[:2]), hw)
@@ -116,7 +117,7 @@ def judge(fields: dict, capture: Capture, content: torch.Tensor, style: torch.Te
     return out
 
 
-def control_capture(program: Capture, fields: dict, content: torch.Tensor,
+def control_capture(arch, program: Capture, fields: dict, content: torch.Tensor,
                     style: torch.Tensor, params, mean, std, device, quant) -> Capture:
     """The control: the reference with ``quant`` rounding its arithmetic,
     put in the program's place for each scale's last chunk, from the
@@ -127,7 +128,7 @@ def control_capture(program: Capture, fields: dict, content: torch.Tensor,
     cap.first_tv, cap.before = dict(program.first_tv), dict(program.before)
     cap.starts = program.sources()
     with fp32():
-        obj = Objective(params, mean, std, fields, quant=quant)
+        obj = Objective(arch, params, mean, std, fields, quant=quant)
         c01, s01 = R.from_u8(content.to(device)), R.from_u8(style.to(device))
         for (hw, _), src in zip(program.scales, cap.starts):
             tg = _targets(obj, fields, c01, s01, tuple(style.shape[:2]), hw)

@@ -33,12 +33,12 @@ def run(run) -> dict:
             break
     window_s = time.perf_counter() - t0
     scales = run.scales(iterations)
-    run.data.update(images=images, window_s=window_s,
-                    flops_per_image=flops.flops_per_ladder(scales),
+    per_image = flops.flops_per_ladder(run.arch, run.fields, scales)
+    run.data.update(images=images, window_s=window_s, flops_per_image=per_image,
                     peak_bytes=run.peak_bytes())
     if run.traced:
         run.start_profile()
         run.stylize(images, iterations)
         run.stop_profile()
-        run.read_profile(sum(n for _, n in scales), flops.flops_per_ladder(scales))
+        run.read_profile(sum(n for _, n in scales), per_image)
     return {"image_s": window_s / images}

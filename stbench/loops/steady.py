@@ -54,7 +54,7 @@ def run(run) -> dict:
             run.attempted += 1
             run.failed += not run.count_chunk(ev.losses)
     hw = tuple(events[-1].size)
-    per_it = flops.flops_per_eval(hw)
+    per_it = flops.flops_per_eval(run.arch, run.fields, hw)
     run.read_profile(2 * chunk, 2 * chunk * per_it)
     run.data.update(window_its=n_window, window_s=window_s, flops_per_it=per_it)
     return {"its_per_s": n_window / window_s}

@@ -2,10 +2,12 @@
 
 A cell (``workloads`` entry ``name``) is ``stbench/workloads/<name>.json``;
 its configuration is the ``configs`` entry it names, whose ``file`` holds
-the model, the objective and the optimizer; a per-layer metric is
-``stbench/metrics/<name>.py``, and a loop ``stbench/loops/<loop>.py``. The
-program's ``StylizeConfig`` is the configuration's ``stylize`` mapping
-overlaid by the cell's.
+the model, the objective and the optimizer; the configuration's ``arch`` is
+``stbench/arch/<arch>.py`` (its weights, plain forward and model work); a
+per-layer metric is ``stbench/metrics/<name>.py``, and a loop
+``stbench/loops/<loop>.py``. The program's ``StylizeConfig`` is the
+configuration's ``stylize`` mapping overlaid by the cell's, and its
+``StyleTransfer`` takes the configuration's ``program`` mapping.
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ import dataclasses
 import importlib
 import importlib.util
 import json
+import re
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 PACKAGE = Path(__file__).resolve().parent
@@ -30,6 +34,7 @@ class Cell:
     config_entry: dict  # the ``configs`` entry
     end_to_end: List[dict]  # metrics this cell reports with --trace 0
     per_layer: List[dict]  # metrics this cell reports with --trace 1
+    arch: ModuleType  # stbench/arch/<the configuration's arch>.py
 
     def stylize(self) -> dict:
         """The ``StylizeConfig`` fields, the optimizer as a mapping."""
@@ -63,7 +68,22 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     config = json.loads((root / config_entry["file"]).read_text())
     return Cell(name, entry, workload, config, config_entry,
                 [m for m in manifest["end_to_end"] if _reports(m, name)],
-                [m for m in manifest["per_layer"] if _reports(m, name)])
+                [m for m in manifest["per_layer"] if _reports(m, name)],
+                load_arch(config["arch"], root))
+
+
+def load_arch(name: str, root: Path = ROOT) -> ModuleType:
+    """The module ``stbench/arch/<name>.py`` under ``root``: ``weights``,
+    ``prepare``, ``features`` and ``work`` (``stbench/README.md``)."""
+    if not re.fullmatch(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}", name):
+        raise ValueError(f"architecture {name!r} is not a name")
+    path = Path(root) / "stbench" / "arch" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"architecture {name!r}: no file {path}")
+    spec = importlib.util.spec_from_file_location(f"stbench_arch_{name.replace('.', '_')}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def loop(name: str):

@@ -1,14 +1,9 @@
-"""The Gatys objective on VGG-19, in plain float32 PyTorch.
+"""The Gatys objective on any architecture, in plain float32 PyTorch.
 
-VGG-19 is configuration E of Simonyan & Zisserman (arXiv:1409.1556): 3x3
-convolutions with padding 1, each followed by a ReLU, in blocks of 2, 2, 4,
-4 and 4 convolutions of 64, 128, 256, 512 and 512 channels, each block
-ended by a 2x2 pooling of stride 2 (average pooling here, as Gatys et al.,
-arXiv:1508.06576, suggest). The image is an NHWC float in [0, 1],
-normalized by the per-channel mean and standard deviation before the first
-convolution.
-
-The objective is ``content_weight * content + style_weight * style +
+The network is the configuration's architecture (``stbench/arch/<arch>.py``:
+its ``prepare`` and ``features``), fed an NHWC float image in [0, 1]
+normalized by the per-channel mean and standard deviation and laid out as
+NCHW. The objective is ``content_weight * content + style_weight * style +
 tv_weight * tv``: the content term is the mean squared error of the content
 layers' activations against the content image's; the style term is the
 mean squared error of the Gram matrices ``F^T F / (H W)`` of the style
@@ -17,10 +12,10 @@ uniformly (weights summing to one); TV is the sum of the squared forward
 differences along H and W over the number of image elements.
 
 Everything runs in float32 with TF32 off (:func:`fp32`). ``quant``, where
-given, rounds every convolution's input, weights and output and every
-Gram's input through it, in the forward and, for the activations, in the
-backward: the benchmark's control computes the same objective in a lower
-precision this way (:func:`fp8`).
+given, rounds every convolution's input, weights and output (the
+architecture applies it) and every Gram's input through it, in the forward
+and, for the activations, in the backward: the benchmark's control
+computes the same objective in a lower precision this way (:func:`fp8`).
 """
 
 from __future__ import annotations
@@ -29,10 +24,7 @@ import contextlib
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
-BLOCKS = ((2, 64), (2, 128), (4, 256), (4, 512), (4, 512))
-CONV_NAMES = tuple(f"conv{b + 1}_{i + 1}" for b, (n, _) in enumerate(BLOCKS) for i in range(n))
 FP8_MAX = 448.0  # the largest float8_e4m3fn
 
 
@@ -70,16 +62,6 @@ def fp8(x: torch.Tensor) -> torch.Tensor:
     return _Fp8.apply(x)
 
 
-def _pool(x: torch.Tensor) -> torch.Tensor:
-    """2x2 average pooling of an NCHW tensor; an odd edge repeats its last
-    row or column first."""
-    if x.shape[2] % 2:
-        x = torch.cat([x, x[:, :, -1:]], dim=2)
-    if x.shape[3] % 2:
-        x = torch.cat([x, x[:, :, :, -1:]], dim=3)
-    return F.avg_pool2d(x, 2)
-
-
 def gram(f: torch.Tensor) -> torch.Tensor:
     """(1, C, H, W) -> (C, C) ``F^T F / (H W)``."""
     m = f.reshape(f.shape[1], -1)
@@ -93,20 +75,26 @@ def tv_loss(image: torch.Tensor) -> torch.Tensor:
     return (torch.sum(dh * dh) + torch.sum(dw * dw)) / float(image.numel())
 
 
+def _device(params) -> torch.device:
+    """The device of the first leaf of nested mappings of tensors."""
+    while isinstance(params, dict):
+        params = next(iter(params.values()))
+    return params.device
+
+
 class Objective:
     """The objective of one configuration on one set of weights.
 
-    ``params``: ``{conv name: {"kernel": (3, 3, cin, cout), "bias": (cout,)}}``
-    (HWIO, any device); ``stylize``: the configuration's layers and weights
-    (``content_layers``, ``style_layers``, ``content_weight``,
-    ``style_weight``, ``tv_weight``)."""
+    ``arch``: the architecture's module; ``params``: its weights as its
+    ``weights`` draws them, nested mappings of tensors (any device);
+    ``stylize``: the configuration's layers and weights (``content_layers``,
+    ``style_layers``, ``content_weight``, ``style_weight``, ``tv_weight``)."""
 
-    def __init__(self, params, mean, std, stylize: dict,
+    def __init__(self, arch, params, mean, std, stylize: dict,
                  quant: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
-        self.w = {n: (params[n]["kernel"].detach().to(torch.float32).permute(3, 2, 0, 1)
-                      .contiguous(), params[n]["bias"].detach().to(torch.float32))
-                  for n in CONV_NAMES}
-        device = self.w["conv1_1"][0].device
+        self.arch = arch
+        self.net = arch.prepare(params, quant)
+        device = _device(params)
         self.mean = torch.as_tensor(mean, dtype=torch.float32, device=device)
         self.std = torch.as_tensor(std, dtype=torch.float32, device=device)
         self.content_layers = tuple(stylize["content_layers"])
@@ -115,28 +103,11 @@ class Objective:
         self.sw = float(stylize["style_weight"])
         self.tw = float(stylize["tv_weight"])
         self.q = quant or (lambda t: t)
-        if quant is not None:
-            self.w = {n: (quant(k), quant(b)) for n, (k, b) in self.w.items()}
 
     def features(self, image: torch.Tensor, layers: Sequence[str]) -> Dict[str, torch.Tensor]:
-        """Post-ReLU NCHW activations of ``layers`` for an NHWC image."""
-        wanted = set(layers)
-        deepest = max(CONV_NAMES.index(l) for l in wanted)
+        """NCHW activations of ``layers`` for an NHWC image."""
         x = ((image - self.mean) / self.std).permute(0, 3, 1, 2)
-        out: Dict[str, torch.Tensor] = {}
-        i = 0
-        for b, (n, _) in enumerate(BLOCKS):
-            for _ in range(n):
-                name = CONV_NAMES[i]
-                k, bias = self.w[name]
-                x = self.q(torch.relu(F.conv2d(self.q(x), k, bias, padding=1)))
-                if name in wanted:
-                    out[name] = x
-                if i == deepest:
-                    return out
-                i += 1
-            x = _pool(x)
-        return out
+        return self.arch.features(self.net, x, layers, self.q)
 
     @torch.no_grad()
     def targets(self, content: torch.Tensor, style: torch.Tensor):

@@ -72,8 +72,8 @@ def main(argv=None, *, root: Path = manifest.ROOT, device=None, after_judge=None
     given, is called once the program's numbers are read (the control's
     readings, ``control.py``), ``details`` their raw readings per scale."""
     args = _parser().parse_args(argv)
-    cell = manifest.load_cell(args.workload, root)
     _cache_dirs(Path(root))
+    cell = manifest.load_cell(args.workload, root)
     import torch
 
     from stbench import inputs
@@ -103,8 +103,8 @@ def main(argv=None, *, root: Path = manifest.ROOT, device=None, after_judge=None
     content, style = inputs.images(args.seed, index, cell.workload["content_hw"],
                                    cell.workload["style_hw"], device)
     details = {} if after_judge is not None else None
-    numbers = judge(run.fields, cap, content, style, run.params, run.mean, run.std, device,
-                    details)
+    numbers = judge(run.arch, run.fields, cap, content, style, run.params, run.mean, run.std,
+                    device, details)
     if after_judge is not None:
         after_judge(run, cap, content, style, details)
     limits = cell.workload["limits"]

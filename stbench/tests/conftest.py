@@ -1,7 +1,8 @@
-"""A benchmark root with two tiny cells, built from the real files plus two
-workload files: each tiny cell holds the limits of the calibrated cell of
-its kind, so a fault that passes here would pass there, and reports the
-metrics of the benchmark's cell of its loop."""
+"""A benchmark root with two tiny cells, built from the real configuration
+and architecture files plus two workload files: each tiny cell holds the
+limits of the calibrated cell of its kind, so a fault that passes here
+would pass there, and reports the metrics of the benchmark's cell of its
+loop."""
 
 import json
 import shutil
@@ -25,7 +26,9 @@ TINY = {
 def make_root(root: Path) -> Path:
     """A copy of the benchmark's data files with the tiny cells added."""
     (root / "stbench" / "workloads").mkdir(parents=True, exist_ok=True)
-    shutil.copytree(REPO / "stbench" / "configs", root / "stbench" / "configs", dirs_exist_ok=True)
+    for data in ("configs", "arch"):
+        shutil.copytree(REPO / "stbench" / data, root / "stbench" / data, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     manifest = json.loads((REPO / "BENCHMARK.json").read_text())
     for name, (like, body) in TINY.items():
         real = json.loads((REPO / "stbench" / "workloads" / f"{like}.json").read_text())

@@ -6,7 +6,7 @@ the steady window and the traced slice would need another hook."""
 import numpy as np
 import torch
 
-from stbench import inputs
+from stbench import inputs, manifest
 from stbench.harness import watch_dispatch
 
 
@@ -14,7 +14,8 @@ def test_stylize_dispatches_once_per_chunk_through_the_hook():
     from style_transfer_tpu_torch.api import StyleTransfer, StylizeConfig
     from style_transfer_tpu_torch.optim import OptimizerSpec
 
-    params = inputs.vgg19_weights(3, "cpu", 0.05)
+    cell = manifest.load_cell("adam-2048")
+    params = cell.arch.weights(3, "cpu", cell.config)
     st = StyleTransfer(params, mean=inputs.IMAGENET_MEAN, std=inputs.IMAGENET_STD,
                        device=torch.device("cpu"))
     seen = []

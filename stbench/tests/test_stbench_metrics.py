@@ -62,3 +62,21 @@ def test_summarize_keeps_ten_of_each():
     s = tracing.summarize(events, 1.0, [])
     assert len(s["device_ops"]) == tracing.TOP and len(s["idle_gaps"]) == tracing.TOP
     assert s["kernels"] == 30 and s["busy_s"] == pytest.approx(150e-9)
+
+
+def test_the_slice_keeps_every_device_operations_time_by_name():
+    """``device_op_s`` holds every operation's total seconds by name, summing
+    to the events' total; the printed ten are its ten largest, as before."""
+    ms = 1_000_000
+    events = [(f"k{i % 13}", 10 * i * ms, (10 * i + 1 + i % 7) * ms) for i in range(40)]
+    events += [("Memcpy DtoH", 500 * ms, 503 * ms), ("k0", 600 * ms, 602 * ms)]
+    s = tracing.summarize(events, 1.0, [])
+    by_name = s["device_op_s"]
+    assert len(by_name) == 14
+    assert sum(by_name.values()) == pytest.approx(sum(t - b for _, b, t in events) / 1e9)
+    for name in by_name:
+        assert by_name[name] == pytest.approx(
+            sum(t - b for n, b, t in events if n == name) / 1e9)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:tracing.TOP]
+    assert s["device_ops"] == [[n, v] for n, v in top]
+    assert len(s["device_ops"]) == tracing.TOP

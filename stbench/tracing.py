@@ -74,10 +74,12 @@ def summarize(events, window_s: float, spans: List[Tuple[str, int, int]],
               t0_ns: Optional[int] = None, t1_ns: Optional[int] = None,
               default: str = "harness") -> Dict:
     """Busy seconds (the union of the device intervals), kernel launches,
-    the device operations that took most time and the longest idle gaps,
-    each gap labelled by the innermost host span it fell in (``default``,
-    the benchmark's own code, where none did). ``t0_ns``/``t1_ns``, the slice's ends on the trace's clock, add
-    the gaps before the first and after the last device event."""
+    every device operation's total seconds by name (``device_op_s``), the
+    ``TOP`` of them that took most time and the longest idle gaps, each gap
+    labelled by the innermost host span it fell in (``default``, the
+    benchmark's own code, where none did). ``t0_ns``/``t1_ns``, the slice's
+    ends on the trace's clock, add the gaps before the first and after the
+    last device event."""
     union = _union(events)
     busy = sum(t - s for s, t in union) / 1e9
     kernels = sum(1 for name, _, _ in events if not name.startswith(("Memcpy", "Memset")))
@@ -93,6 +95,7 @@ def summarize(events, window_s: float, spans: List[Tuple[str, int, int]],
         "busy_s": busy,
         "window_s": window_s,
         "kernels": kernels,
+        "device_op_s": by_name,
         "device_ops": [[n, v] for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]],
         "idle_gaps": [[n, v] for n, v in gaps[:TOP]],
     }
