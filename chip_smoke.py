@@ -696,6 +696,246 @@ def block1_rates(torch, params):
     return rows
 
 
+def _resnet_launch(torch, kernel, shape):
+    """``(kernel thunk, plain thunk, library thunk or None, least bytes,
+    FLOPs)`` of one ResNet launch from the shape its counter recorded
+    (``ops/kernels/_launch.py``), on random bf16 operands: the kernel, its
+    plain fp32 form (``ops/kernels/resnet.py``) and the cuDNN call that does
+    the same work (a 1x1 convolution, or for a GEMM on im2col columns the
+    whole strided convolution, forward or backward-data; ``F.max_pool2d``
+    and its backward; ReLU's backward)."""
+    import torch.nn.functional as F
+
+    from style_transfer_tpu_torch.ops.kernels import _build, _launch
+    from style_transfer_tpu_torch.ops.kernels import resnet as RK
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    count = _build.LaunchCount()  # apart from the wrappers' counts
+
+    def rnd(*sh, relu=False, scale=1.0):
+        t = torch.randn(sh, device=dev) * scale
+        return (torch.relu(t) if relu else t).to(bf)
+
+    def cl(t):  # (H, W, C) -> channels-last NCHW
+        return t.permute(2, 0, 1)[None].contiguous(memory_format=torch.channels_last)
+
+    def conv_of(k, n):  # the convolution a GEMM of K = k stands for: (kh, stride)
+        return (7, 2) if k == 152 or n == 152 else (3, 2) if k == 9 * n or n == 9 * k else (1, 1)
+
+    if kernel == "conv1x1_fwd":
+        h, w, k, n, stride, residual, relu = shape
+        x, wt, b = rnd(h, w, k, relu=True), rnd(k, n, scale=(2 / k) ** 0.5), rnd(n, scale=0.1)
+        ho, wo = _launch.strided_hw(h, w, stride)
+        res = rnd(ho, wo, n) if residual else None
+        kh, st = conv_of(k, n)
+        cin = k if kh == 1 else k // (kh * kh) if kh == 3 else 3
+        xl = cl(rnd(h * st if kh > 1 else h, w * st if kh > 1 else w, cin))
+        wl = rnd(n, cin, kh, kh).contiguous(memory_format=torch.channels_last)
+        lib = lambda: F.conv2d(xl, wl, stride=stride if kh == 1 else st, padding=kh // 2)  # noqa: E731
+        nbytes = 2 * (ho * wo * k + k * n + ho * wo * n * (2 if residual else 1) + n)
+        return (lambda: _launch.conv1x1_fwd(x, wt, b, stride=stride, residual=res, relu=relu,
+                                            count=count),
+                lambda: RK.conv1x1_plain(x.float(), wt.float(), b.float(), stride=stride,
+                                         add=None if res is None else res.float(), relu=relu),
+                lib, nbytes, 2.0 * ho * wo * k * n)
+    if kernel == "conv1x1_bwd_data":
+        h, w, k, n, add, add_sub, gate = shape
+        dy, wt = rnd(h, w, k), rnd(k, n, scale=(2 / k) ** 0.5)
+        sub = _launch.strided_hw(h, w, 2) if add_sub else (h, w)
+        a = rnd(*sub, n) if add else None
+        g = rnd(h, w, n) if gate else None
+        kh, st = conv_of(k, n)
+        cin = n if kh == 1 else n // (kh * kh) if kh == 3 else 3
+        dyl = cl(dy)
+        wl = rnd(k, cin, kh, kh).contiguous(memory_format=torch.channels_last)
+        size = (1, cin, h * st, w * st) if kh > 1 else (1, cin, h, w)
+        lib = lambda: torch.nn.grad.conv2d_input(size, wl, dyl, stride=st, padding=kh // 2)  # noqa: E731
+        nbytes = 2 * (h * w * k + k * n + h * w * n + (sub[0] * sub[1] * n if add else 0)
+                      + (h * w * n if gate else 0))
+        return (lambda: _launch.conv1x1_bwd_data(dy, wt, add=a, add_sub=add_sub, gate=g,
+                                                 count=count),
+                lambda: RK.conv1x1_plain(dy.float(), wt.float(),
+                                         add=None if a is None else a.float(), add_sub=add_sub,
+                                         gate=g),
+                lib, nbytes, 2.0 * h * w * k * n)
+    if kernel == "im2col":
+        h, w, c, kh, kw, stride, kp = shape
+        x = rnd(h, w, c)
+        ho, wo = _launch.strided_hw(h, w, stride)
+        return (lambda: _launch.im2col(x, kh, kw, stride, kp, count=count),
+                lambda: RK.im2col_plain(x, kh, kw, stride, kp), None,
+                2 * (h * w * c + ho * wo * kp), 0.0)
+    if kernel == "col2im":
+        h, w, c, kh, kw, stride, kp, gate = shape
+        ho, wo = _launch.strided_hw(h, w, stride)
+        dcol, g = rnd(ho, wo, kp), (rnd(h, w, c) if gate else None)
+        return (lambda: _launch.col2im(dcol, (h, w), c, kh, kw, stride, gate=g, count=count),
+                lambda: RK.col2im_plain(dcol, (h, w), c, kh, kw, stride, gate=g), None,
+                2 * (ho * wo * kp + h * w * c * (2 if gate else 1)), 0.0)
+    if kernel == "maxpool_fwd":
+        h, w, c = shape
+        x = rnd(h, w, c, relu=True)
+        ho, wo = _launch.strided_hw(h, w, 2)
+        xl = cl(x)
+        return (lambda: _launch.maxpool_fwd(x, count=count), lambda: RK.maxpool_plain(x),
+                lambda: F.max_pool2d(xl, 3, 2, 1, return_indices=True),
+                2 * h * w * c + 3 * ho * wo * c, 0.0)
+    if kernel == "maxpool_bwd":
+        h, w, c, has_dy, add, gate = shape
+        x = rnd(h, w, c, relu=True)
+        y, idx = _launch.maxpool_fwd(x, count=count)
+        dy = rnd(*y.shape) if has_dy else None
+        a, g = (rnd(h, w, c) if add else None), (x if gate else None)
+        xl = cl(x)
+        _, lidx = F.max_pool2d(xl, 3, 2, 1, return_indices=True)
+        dyl = cl(rnd(*y.shape))
+        lib = lambda: torch.ops.aten.max_pool2d_with_indices_backward(  # noqa: E731
+            dyl, xl, [3, 3], [2, 2], [1, 1], [1, 1], False, lidx)
+        return (lambda: _launch.maxpool_bwd(dy, idx, (h, w), add=a, gate=g, count=count),
+                lambda: RK.maxpool_bwd_plain(dy, idx, (h, w), add=a, gate=g), lib,
+                3 * y.numel() + 2 * h * w * c * (1 + bool(add) + bool(gate)), 0.0)
+    if kernel == "relu_gate":
+        (n,) = shape
+        dy, g = rnd(n), rnd(n)
+        return (lambda: _launch.relu_gate(dy, g, count=count), lambda: RK.relu_gate_plain(dy, g),
+                lambda: torch.ops.aten.threshold_backward(dy, g, 0), 6 * n, 0.0)
+    raise ValueError(f"no ResNet launcher {kernel!r}")
+
+
+# the launchers ResNet-50 added (its stride-1 3x3s are conv_rates' conv3x3 tiles)
+RESNET_LAUNCHERS = ("conv1x1_fwd", "conv1x1_bwd_data", "im2col", "col2im", "maxpool_fwd",
+                    "maxpool_bwd", "relu_gate")
+
+# ResNet-50 launches off the cell's shapes: odd extents, a ragged tile, the
+# stem's 3 channels, 2048 channels
+RESNET_EDGES = [
+    ("conv1x1_fwd", (37, 23, 72, 136, 1, True, True)),
+    ("conv1x1_fwd", (37, 23, 64, 200, 2, False, False)),
+    ("conv1x1_fwd", (3, 5, 2048, 64, 1, True, True)),
+    ("conv1x1_bwd_data", (37, 23, 64, 72, True, True, True)),
+    ("conv1x1_bwd_data", (9, 7, 64, 2048, True, False, True)),
+    ("im2col", (37, 23, 3, 7, 7, 2, 152)),
+    ("col2im", (37, 23, 3, 7, 7, 2, 152, False)),
+    ("im2col", (37, 23, 16, 3, 3, 2, 144)),
+    ("col2im", (37, 23, 16, 3, 3, 2, 144, True)),
+    ("maxpool_fwd", (37, 23, 64)),
+    ("maxpool_bwd", (37, 23, 64, True, True, True)),
+    ("relu_gate", (37 * 23 * 64,)),
+]
+
+
+def resnet_rates(torch):
+    """ResNet-50's kernels (``csrc/conv1x1.cu``, ``csrc/im2col.cu``) at the
+    launches of one objective evaluation of the 2048^2 cell
+    (``resnet50-adam-2048``'s layers, recorded by ``trace.recording()``):
+    for each kernel, over the step, its device ms (profiler, each distinct
+    launch timed alone, times its count), its plain fp32 form's, the cuDNN
+    call's that does the same work (where one does; by CUDA events: the
+    profiler has missed cuDNN's device time here) and the bound, with
+    each distinct launch's error against the plain form (within
+    ``TOL_ACT``; the copies exact) and its share of its roofline (a share
+    above 100% is listed, not refused: an operand that L2 holds is read
+    faster than from memory); the edge cases of :data:`RESNET_EDGES`; and
+    the Gram kernel at ResNet's 1024 and 2048 channels (128^2 and 64^2)
+    against the plain fp32 contraction and ``f.T @ f`` + ``f @ S``."""
+    from style_transfer_tpu_torch import StyleTransfer, StylizeConfig, trace
+    from style_transfer_tpu_torch.models import resnet as R
+    from style_transfer_tpu_torch.ops import losses
+    from style_transfer_tpu_torch.ops.kernels import gram as KG
+    from style_transfer_tpu_torch.ops.kernels.tolerances import TOL_ACT, TOL_GRAM
+
+    dev = torch.device("cuda")
+    card = _nvidia_smi()
+    st = StyleTransfer(R.init_params(0), device=dev)
+    cfg = StylizeConfig(size=2048, min_scale=2048, content_layers=("layer2",),
+                        style_layers=R.LAYER_NAMES)
+    img = torch.rand(1, 2048, 2048, 3, device=dev)
+    targets = (st._capture_content(cfg, img), st._capture_style(cfg, img.flip(1)))
+    objective = st._build_objective(cfg)
+
+    def step():
+        x = img.clone().requires_grad_(True)
+        objective(x, *targets)[0].backward()
+
+    step()
+    torch.cuda.synchronize()
+    trace.clear()
+    with trace.recording():
+        step()
+    launches = {}
+    for (wrapper, kernel, shape), n in trace.counts().items():
+        if wrapper == "resnet" and kernel in RESNET_LAUNCHERS:
+            launches[(kernel, shape)] = launches.get((kernel, shape), 0) + n
+    trace.clear()
+    step_ms, _, by_name = _device_by_name(torch, step, reps=2, top=40)
+
+    rows, above, worst = {}, [], {}
+    for (kernel, shape), n in sorted(launches.items(), key=lambda kv: str(kv[0])):
+        fn, plain, lib, nbytes, flops = _resnet_launch(torch, kernel, shape)
+        got, want = fn(), plain()
+        got, want = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
+        err = _rel(got, want)
+        worst[kernel] = max(worst.get(kernel, 0.0), err)
+        if err > TOL_ACT:
+            raise AssertionError(f"{kernel} {shape}: relative error {err} against its plain form")
+        ms = _device_ms(torch, fn)
+        bound, by = _bound(nbytes, flops, "bf16")
+        if bound / ms > 1.0:
+            above.append({"kernel": kernel, "shape": list(shape), "share": bound / ms, "by": by})
+        r = rows.setdefault(kernel, {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                                     "bound_ms": 0.0})
+        r["launches"] += n
+        r["ms"] += n * ms
+        r["plain_ms"] += n * _device_ms(torch, plain, reps=2)
+        r["library_ms"] += n * (statistics.median(_wall_ms(torch, lib, reps=5))
+                                if lib is not None else 0.0)
+        r["bound_ms"] += n * bound
+        torch.cuda.empty_cache()
+    for kernel, r in rows.items():
+        r["roofline_pct"] = 100.0 * r["bound_ms"] / r["ms"]
+        r["max_rel_err"] = worst[kernel]
+    edges = []
+    for kernel, shape in RESNET_EDGES:
+        fn, plain, _, _, _ = _resnet_launch(torch, kernel, shape)
+        got, want = fn(), plain()
+        got, want = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
+        edges.append({"kernel": kernel, "shape": list(shape), "rel": _rel(got, want)})
+    bad = [e for e in edges if e["rel"] > TOL_ACT]
+    grams = []
+    for hw, c in (((128, 128), 1024), ((64, 64), 2048)):
+        f = torch.randn(1, *hw, c, device=dev).relu().to(torch.bfloat16)
+        s = (torch.randn(c, c, device=dev) * 1e-3)
+        sb = s.to(torch.bfloat16)
+        f2 = f.view(-1, c)
+
+        def kern(f=f, s=s):
+            x = f.detach().requires_grad_(True)
+            KG.pallas_gram(x).backward(s)
+
+        def plain(f=f, s=s):
+            x = f.detach().float().requires_grad_(True)
+            losses.gram_matrix(x).backward(s)
+
+        m = hw[0] * hw[1]
+        nbytes = 2 * m * c * 2 + 4 * c * c + 2 * c * c + 2 * m * c
+        bound, by = _bound(nbytes, _gram_flops(m, c), "bf16")
+        err = _rel(KG.pallas_gram(f), losses.gram_matrix(f.float()))
+        grams.append({"shape": [*hw, c], "ms": _device_ms(torch, kern),
+                      "plain_ms": _device_ms(torch, plain),
+                      "library_ms": statistics.median(_wall_ms(
+                          torch, lambda f2=f2, sb=sb: (f2.T @ f2, f2 @ sb), reps=5)),
+                      "bound_ms": bound, "bound_by": by, "rel_err": err})
+        if err > TOL_GRAM:
+            raise AssertionError(f"the Gram at {hw} x {c}: relative error {err}")
+    emit({"phase": "kernel", "kernel": "resnet_rates", "scale": 2048, "card": card,
+          "step_device_ms": step_ms, "step_by_name": by_name, "kernels": rows,
+          "above_roofline": above, "edges": edges, "grams": grams})
+    if bad:
+        raise AssertionError(f"ResNet edge cases beyond TOL_ACT: {bad}")
+    del st, targets, img
+    torch.cuda.empty_cache()
+
+
 def kernel_checks(torch, params, only=()):
     """Phase 3: every kernel wrapper at the shapes its path gives it, in bf16
     (TV, the fp32 content loss and the style loss in fp32), against its plain
@@ -1076,6 +1316,7 @@ def kernel_checks(torch, params, only=()):
     edge_cases(torch)
     conv_rates(torch)
     block1_rates(torch, params)
+    resnet_rates(torch)
     return summary
 
 

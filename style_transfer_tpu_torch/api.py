@@ -133,6 +133,14 @@ initialized or restored, and sharded), ``dispatch`` (the body of
 waits on the chunk's event and reads its losses and ``callback`` hands its
 event to the sink; ``output`` is the final quantize and copy to the host.
 
+ResNet-50 weights (``models/resnet.py``: the architecture follows from
+the parameter keys) take their own route: ``_vgg`` sends them, under
+``use_fused``, to :meth:`StyleTransfer._resnet_features` (the stem and its
+max pool, then each stage up to the deepest requested layer, on the kernels
+of ``ops/kernels/resnet.py``), else to the plain ``resnet.extract_features``;
+the loss terms, the optimizers, the loop and its pipelining are the ones
+VGG uses. ResNet-50 takes no mesh and no other pooling than its own.
+
 Left out (ROADMAP.md): background compiles (``warm_compile``: the port
 compiles nothing per scale), grid snapping and the 2^31 TPU resolution
 ceiling, and the ``packed_block*`` switches (the chain engages by its
@@ -155,6 +163,8 @@ import torch
 import torch.utils.checkpoint
 
 from style_transfer_tpu_torch import trace
+from style_transfer_tpu_torch import models
+from style_transfer_tpu_torch.models import resnet as resnet_mod
 from style_transfer_tpu_torch.models import vgg as vgg_mod
 from style_transfer_tpu_torch.models.weights import random_fixture
 from style_transfer_tpu_torch.ops import losses as L
@@ -166,6 +176,7 @@ from style_transfer_tpu_torch.ops.kernels import conv_single as CS
 from style_transfer_tpu_torch.ops.kernels import dispatch
 from style_transfer_tpu_torch.ops.kernels import epilogue as EP
 from style_transfer_tpu_torch.ops.kernels import gram as KG
+from style_transfer_tpu_torch.ops.kernels import resnet as RK
 from style_transfer_tpu_torch.optim import OptimizerSpec, make_step_fn
 from style_transfer_tpu_torch.parallel import mesh as M
 from style_transfer_tpu_torch.schedule import _round_even, build_plan
@@ -264,6 +275,11 @@ REMAT_AUTO_PIXELS = 35_850_000
 #: The same where the full kernel chain carries it
 #: (:meth:`StyleTransfer._full_chain_dispatches`).
 REMAT_AUTO_PIXELS_FUSED = 79_960_000
+#: The same for ResNet-50 on its kernels: the pixels at which what its
+#: forward keeps for the backward, and the stem's im2col operand beside it
+#: (``models.resnet.peak_bytes_per_pixel``, 463 bytes a pixel), reach the
+#: chain's budget of 57220 MiB: 129.6 Mpx (11384 px square).
+REMAT_AUTO_PIXELS_RESNET = int(57220 * 2 ** 20 / resnet_mod.peak_bytes_per_pixel())
 
 
 def _pipeline_auto(cfg: StylizeConfig, pixels: int) -> bool:
@@ -517,19 +533,34 @@ class StyleTransfer:
     ``params=None`` uses the port's numpy-drawn VGG-19 fixture
     (:func:`~style_transfer_tpu_torch.models.weights.random_fixture`); pass
     weights from :func:`~style_transfer_tpu_torch.models.weights.load_npz`
-    for real stylization. ``device=None`` means the card: without a CUDA
-    device it raises, and the CPU is used only when asked with
-    ``device="cpu"``. ``compute_dtype`` defaults to bf16 on CUDA and fp32 on
-    the CPU (``api.py:362-364``).
+    for real stylization, or ResNet-50's (``models/resnet.py``, batch norm
+    folded by ``resnet.fold_batch_norm``): the architecture follows from the
+    keys (``models.infer_arch``). ``pooling=None`` is the architecture's
+    own: average for VGG, max for ResNet-50 (its stem's, the only one it
+    takes). ``device=None`` means the card: without a CUDA device it raises,
+    and the CPU is used only when asked with ``device="cpu"``.
+    ``compute_dtype`` defaults to bf16 on CUDA and fp32 on the CPU
+    (``api.py:362-364``). ResNet-50 does not run on a ``mesh``.
     """
 
-    def __init__(self, params=None, *, mean=None, std=None, pooling: str = "average",
+    def __init__(self, params=None, *, mean=None, std=None, pooling: Optional[str] = None,
                  compute_dtype: Optional[torch.dtype] = None, device=None,
                  mesh: Optional[M.Mesh] = None):
         if params is None:
             params, fmean, fstd = random_fixture(0)
             mean = fmean if mean is None else mean
             std = fstd if std is None else std
+        arch = models.infer_arch(params)
+        if arch == resnet_mod.ARCH:
+            if mesh is not None:
+                raise ValueError("ResNet-50 does not run on a mesh: its strided convolutions "
+                                 "have no row-sharded form; use StyleTransfer without mesh=")
+            if pooling not in (None, resnet_mod.POOLING):
+                raise ValueError(f"ResNet-50 pools with its stem's {resnet_mod.POOLING!r} pool, "
+                                 f"got pooling={pooling!r}")
+            pooling = resnet_mod.POOLING
+        elif pooling is None:
+            pooling = "average"
         self.mesh = mesh
         if mesh is not None:
             if device is not None and M.canonical_device(device) != mesh.home:
@@ -553,14 +584,14 @@ class StyleTransfer:
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.compute_dtype = compute_dtype
-        self.arch = vgg_mod.infer_arch(params)
+        self.arch = arch
         self.params = {
             name: {k: torch.as_tensor(v, dtype=torch.float32).to(self.device) for k, v in p.items()}
             for name, p in params.items()
         }
         if mesh is not None:
             M.replicate(self.params, mesh)  # one copy per other device, made now
-        # the chain's route of the last VGG forward: (segment, form) pairs
+        # the route of the last forward: (segment, form) pairs
         self.last_route: Tuple[Tuple[str, str], ...] = ()
 
     # ---------------------------------------------------------------- model
@@ -597,8 +628,14 @@ class StyleTransfer:
 
     def _features(self, image: torch.Tensor, layers: Sequence[str],
                   remat: bool = False) -> Dict[str, torch.Tensor]:
-        """Preprocess + plain VGG forward on an NHWC [0,1] image; under a
-        mesh, per shard (each activation a list of shards)."""
+        """Preprocess + the plain forward (VGG, or ResNet-50) on an NHWC
+        [0,1] image; under a mesh, per shard (each activation a list of
+        shards)."""
+        if self.arch == resnet_mod.ARCH:
+            x = imgio.preprocess(image, self._mean, self._std)
+            self.last_route = ((resnet_mod.ARCH, "plain"),)
+            return resnet_mod.extract_features(self.params, x, layers,
+                                               compute_dtype=self.compute_dtype, remat=remat)
         if self.mesh is not None:
             xs, _ = self._input(image)
             self.last_route = (("vgg", "plain_sharded"),)
@@ -731,6 +768,9 @@ class StyleTransfer:
         device under a mesh."""
         if cfg.remat is not None:
             return cfg.remat
+        if self.arch == resnet_mod.ARCH:
+            fused = self._fused(cfg)
+            return self._pixels(h, w) >= (REMAT_AUTO_PIXELS_RESNET if fused else REMAT_AUTO_PIXELS)
         full = (self._chain(cfg)
                 and self._full_chain_dispatches(h, w, cfg.content_layers, cfg.style_layers))
         return self._pixels(h, w) >= (REMAT_AUTO_PIXELS_FUSED if full else REMAT_AUTO_PIXELS)
@@ -841,8 +881,41 @@ class StyleTransfer:
             self.last_route += (("block2+", "plain"),)
         return feats, ({"conv1_1": g1} if "conv1_1" in style_layers else {})
 
+    def _resnet_features(self, image, content_layers, style_layers, remat: bool = False):
+        """ResNet-50 on its kernels (``ops/kernels/resnet.py``): returns
+        ``(feats, grams)`` as :meth:`_chain_features` does, every requested
+        layer an activation in ``feats`` (its Gram is ``gram_fn``'s) and
+        ``grams`` empty. The stem and the max pool, then each stage up to
+        the deepest requested layer; ``remat`` runs each under a
+        checkpoint."""
+        all_layers = tuple(dict.fromkeys(list(content_layers) + list(style_layers)))
+        stop = resnet_mod.deepest_layer(all_layers)
+        ck = _checkpointed if remat else (lambda f: f)
+        x, _ = self._input(image)
+        p = self.params
+        pooled, act = ck(RK.stem_pool)(x, p["conv1"]["kernel"], p["conv1"]["bias"])
+        route = [("conv1", "im2col_gemm"), ("maxpool", "kernel")]
+        feats = {"conv1": act} if "conv1" in all_layers else {}
+        if stop != "conv1":
+            for s in range(1, len(resnet_mod.STAGES) + 1):
+                name = f"layer{s}"
+                pooled = ck(RK.stage)(pooled, p, s)
+                route.append((name, "bottlenecks"))
+                if name in all_layers:
+                    feats[name] = pooled
+                if name == stop:
+                    break
+        self.last_route = tuple(route)
+        return feats, {}
+
     def _vgg(self, cfg: StylizeConfig, image, content_layers, style_layers, remat: bool = False):
-        """``(feats, grams)`` of ``image`` by the route ``cfg`` selects."""
+        """``(feats, grams)`` of ``image`` by the route ``cfg`` selects (for
+        ResNet-50: its kernels under ``use_fused``, else the plain path)."""
+        if self.arch == resnet_mod.ARCH:
+            if self._fused(cfg):
+                return self._resnet_features(image, content_layers, style_layers, remat)
+            layers = tuple(dict.fromkeys(list(content_layers) + list(style_layers)))
+            return self._features(image, layers, remat), {}
         if self._block1_eligible(cfg):
             return self._fused_block1_features(image, content_layers, style_layers, remat)
         if self._chain(cfg):

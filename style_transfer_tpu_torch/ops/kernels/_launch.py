@@ -18,7 +18,22 @@ launcher's name and the shape its operations and bytes follow from:
 - ``gram_fs``: ``(M, C, W, clo, chi, relu_gate, bf16 out)``;
 - ``tv``, ``tv_grad``: ``(H, W*C, C)``; ``sse``, ``scale_cast``:
   ``(elements, bytes per element)``;
-- ``block1_fwd``, ``block1_bwd``: ``(H, W, full)``, ``full`` with conv1_1.
+- ``block1_fwd``, ``block1_bwd``: ``(H, W, full)``, ``full`` with conv1_1;
+- ``conv1x1_fwd``: ``(H, W, K, N, stride, residual, relu)``, H x W the
+  input's extent (the output's is ``ceil(H / stride)`` x ``ceil(W /
+  stride)``), K input and N output channels, whether a residual is added
+  and the ReLU applied (the bias always is);
+- ``conv1x1_bwd_data``: ``(H, W, K, N, add, add_sub, gate)``, H x W the
+  extent of the cotangent and of the output, K the cotangent's channels
+  and N the output's, whether an ``add`` operand is given (at half the
+  extent with ``add_sub``) and a gate;
+- ``im2col``: ``(H, W, C, kh, kw, stride, Kp)``, the input's extent and
+  channels, the kernel, the stride and the padded column count (the
+  padding is half the kernel); ``col2im``: ``(H, W, C, kh, kw, stride, Kp,
+  gate)``, H x W the extent it writes;
+- ``maxpool_fwd``: ``(H, W, C)``, the input's; ``maxpool_bwd``: ``(H, W,
+  C, dy, add, gate)``, the extent it writes and which operands are given;
+- ``relu_gate``: ``(elements,)``.
 
 Only CUDA tensors get here; nothing in this module runs on the CPU.
 """
@@ -126,11 +141,15 @@ def gram_rows_per_chunk(m: int, c: int) -> int:
 
 
 def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+    # an int or None: ctypes converts either for a c_void_p parameter
+    return None if t is None else t.data_ptr()
 
 
 def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    # PyTorch's current stream on the current device, read through the two C
+    # calls that torch.cuda.current_stream() ends in: its Python path checks
+    # CUDA's availability on every call, about 10 us of host time a launch
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def _check_launch(lib, err: int, name: str) -> None:
@@ -139,6 +158,9 @@ def _check_launch(lib, err: int, name: str) -> None:
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Tuple[int, ...]) -> None:
+    if (t.is_cuda and t.dtype == dtype and t.shape == tuple(shape) and t.is_contiguous()
+            and not t.data_ptr() % 16):
+        return  # the launch's common case, in one test
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
     if t.dtype != dtype:
@@ -635,4 +657,169 @@ def block1_col2im(dpt: torch.Tensor) -> torch.Tensor:
     out = torch.empty((h, w, 3), dtype=torch.bfloat16, device=dpt.device)
     lib = library()
     _check_launch(lib, lib.st_block1_col2im(_ptr(dpt), _ptr(out), h, w, _stream()), "block1_col2im")
+    return out
+
+
+def _opt(t: Optional[torch.Tensor], name: str, dtype: torch.dtype, shape) -> None:
+    if t is not None:
+        _require(t, name, dtype, shape)
+
+
+#: Output pixels (rows, columns) and channels of a block of ``csrc/conv1x1.cu``,
+#: its reduction channels per chunk, and its blocks per SM; ``chip_smoke.py``
+#: holds them against the built library (``st_conv1x1_info``).
+CONV1X1_TILE = (8, 16, 128)
+CONV1X1_KC = 64
+CONV1X1_BLOCKS_PER_SM = 2
+
+
+def strided_hw(h: int, w: int, stride: int) -> Tuple[int, int]:
+    """Extent after stride ``stride`` (1 or 2) with half-kernel padding."""
+    return -(-h // stride), -(-w // stride)
+
+
+def _conv1x1(x, w, *, bias, add, gate, relu: bool, stride: int, add_sub: bool):
+    h, wd, k = x.shape
+    n = w.shape[1]
+    _require(x, "x", torch.bfloat16, (h, wd, k))
+    _require(w, "w", torch.bfloat16, (k, n))
+    if k % 8 or n % 8 or k < 64 or n < 64:
+        raise ValueError(f"conv1x1 takes K and N multiples of 8 and at least 64, got {(k, n)}")
+    if stride not in (1, 2):
+        raise ValueError(f"conv1x1 takes stride 1 or 2, got {stride}")
+    ho, wo = strided_hw(h, wd, stride)
+    _opt(bias, "bias", torch.bfloat16, (n,))
+    _opt(add, "add", torch.bfloat16, strided_hw(ho, wo, 2) + (n,) if add_sub else (ho, wo, n))
+    _opt(gate, "gate", torch.bfloat16, (ho, wo, n))
+    y = torch.empty((ho, wo, n), dtype=torch.bfloat16, device=x.device)
+    lib = library()
+    err = lib.st_conv1x1(_ptr(x), _ptr(w), _ptr(bias), _ptr(add), _ptr(gate), _ptr(y), h, wd, k,
+                         n, stride, int(relu), int(add_sub), _stream())
+    _check_launch(lib, err, "conv1x1")
+    return y
+
+
+def conv1x1_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, count: LaunchCount,
+                stride: int = 1, residual: Optional[torch.Tensor] = None,
+                relu: bool = True) -> torch.Tensor:
+    """``[relu](x[::stride, ::stride] @ w + b [+ residual])`` for x (H, W, K)
+    bf16, w (K, N) bf16 (``_weights.gemm``), b (N,) bf16 and residual
+    (ceil(H/stride), ceil(W/stride), N) bf16: the bf16 output."""
+    y = _conv1x1(x, w, bias=b, add=residual, gate=None, relu=relu, stride=stride, add_sub=False)
+    h, wd, k = x.shape
+    count.add("conv1x1_fwd", (h, wd, k, w.shape[1], stride, residual is not None, relu))
+    return y
+
+
+def conv1x1_bwd_data(dy: torch.Tensor, w_t: torch.Tensor, *, count: LaunchCount,
+                     add: Optional[torch.Tensor] = None, add_sub: bool = False,
+                     gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``[gate >] (dy @ w_t [+ add])`` for dy (H, W, K) bf16 and w_t (K, N)
+    bf16 (``_weights.gemm_t``): the (H, W, N) bf16 cotangent of a
+    convolution's input (or of its im2col columns). ``add`` (H, W, N) bf16,
+    or with ``add_sub`` (ceil(H/2), ceil(W/2), N) landing on the even
+    pixels (a stride-2 projection's input cotangent); ``gate`` (H, W, N)
+    bf16 zeroes where it is <= 0."""
+    y = _conv1x1(dy, w_t, bias=None, add=add, gate=gate, relu=False, stride=1, add_sub=add_sub)
+    h, wd, k = dy.shape
+    count.add("conv1x1_bwd_data", (h, wd, k, w_t.shape[1], add is not None, add_sub,
+                                   gate is not None))
+    return y
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int, kp: int, *,
+           count: LaunchCount) -> torch.Tensor:
+    """The (Ho, Wo, kp) bf16 columns of x (H, W, C) bf16 for a kh x kw
+    convolution of ``stride`` with half-kernel padding: column ``(ky * kw +
+    kx) * C + c``, zero beyond kh kw C."""
+    h, wd, c = x.shape
+    _require(x, "x", torch.bfloat16, (h, wd, c))
+    if kp % 8 or kp < kh * kw * c:
+        raise ValueError(f"columns must be a multiple of 8 and at least {kh * kw * c}, got {kp}")
+    ho, wo = strided_hw(h, wd, stride)
+    col = torch.empty((ho, wo, kp), dtype=torch.bfloat16, device=x.device)
+    lib = library()
+    err = lib.st_im2col(_ptr(x), _ptr(col), h, wd, c, kh, kw, stride, kh // 2, ho, wo, kp,
+                        _stream())
+    _check_launch(lib, err, "im2col")
+    count.add("im2col", (h, wd, c, kh, kw, stride, kp))
+    return col
+
+
+def col2im(dcol: torch.Tensor, hw: Tuple[int, int], c: int, kh: int, kw: int, stride: int, *,
+           count: LaunchCount, gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The adjoint of :func:`im2col`: the (H, W, c) bf16 cotangent of its
+    input from the (Ho, Wo, Kp) bf16 cotangent of its columns, each pixel's
+    taps summed in fp32 in tap order, zero where ``gate`` (H, W, c) bf16 is
+    <= 0."""
+    h, wd = hw
+    ho, wo = strided_hw(h, wd, stride)
+    kp = dcol.shape[2]
+    _require(dcol, "dcol", torch.bfloat16, (ho, wo, kp))
+    _opt(gate, "gate", torch.bfloat16, (h, wd, c))
+    if kp < kh * kw * c:
+        raise ValueError(f"columns must be at least {kh * kw * c}, got {kp}")
+    if c % 8 and c > 8:
+        raise ValueError(f"col2im takes a multiple of 8 channels or at most 8, got {c}")
+    dx = torch.empty((h, wd, c), dtype=torch.bfloat16, device=dcol.device)
+    lib = library()
+    err = lib.st_col2im(_ptr(dcol), _ptr(gate), _ptr(dx), h, wd, c, kh, kw, stride, kh // 2, ho,
+                        wo, kp, _stream())
+    _check_launch(lib, err, "col2im")
+    count.add("col2im", (h, wd, c, kh, kw, stride, kp, gate is not None))
+    return dx
+
+
+def maxpool_fwd(x: torch.Tensor, *, count: LaunchCount):
+    """The 3x3 stride-2 max pool (padding 1) of x (H, W, C) bf16, C % 8 ==
+    0: the bf16 output and the int8 window index of each maximum, both
+    (ceil(H/2), ceil(W/2), C)."""
+    h, wd, c = x.shape
+    _require(x, "x", torch.bfloat16, (h, wd, c))
+    if c % 8:
+        raise ValueError(f"max pool channels must be a multiple of 8, got {c}")
+    ho, wo = strided_hw(h, wd, 2)
+    y = torch.empty((ho, wo, c), dtype=torch.bfloat16, device=x.device)
+    idx = torch.empty((ho, wo, c), dtype=torch.int8, device=x.device)
+    lib = library()
+    err = lib.st_maxpool_fwd(_ptr(x), _ptr(y), _ptr(idx), h, wd, c, ho, wo, _stream())
+    _check_launch(lib, err, "maxpool_fwd")
+    count.add("maxpool_fwd", (h, wd, c))
+    return y, idx
+
+
+def maxpool_bwd(dy: Optional[torch.Tensor], idx: torch.Tensor, hw: Tuple[int, int], *,
+                count: LaunchCount, add: Optional[torch.Tensor] = None,
+                gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The (H, W, C) bf16 cotangent of the max pool's input: each pixel's
+    share of ``dy`` (the pool's (Ho, Wo, C) bf16 cotangent; None reads as
+    zero) by ``idx``, ``+ add`` (H, W, C) bf16, zero where ``gate`` (H, W,
+    C) bf16 is <= 0."""
+    h, wd = hw
+    ho, wo, c = idx.shape
+    _require(idx, "idx", torch.int8, strided_hw(h, wd, 2) + (c,))
+    _opt(dy, "dy", torch.bfloat16, (ho, wo, c))
+    _opt(add, "add", torch.bfloat16, (h, wd, c))
+    _opt(gate, "gate", torch.bfloat16, (h, wd, c))
+    dx = torch.empty((h, wd, c), dtype=torch.bfloat16, device=idx.device)
+    lib = library()
+    err = lib.st_maxpool_bwd(_ptr(dy), _ptr(idx), _ptr(add), _ptr(gate), _ptr(dx), h, wd, c, ho,
+                             wo, _stream())
+    _check_launch(lib, err, "maxpool_bwd")
+    count.add("maxpool_bwd", (h, wd, c, dy is not None, add is not None, gate is not None))
+    return dx
+
+
+def relu_gate(dy: torch.Tensor, gate: torch.Tensor, *, count: LaunchCount) -> torch.Tensor:
+    """``where(gate > 0, dy, 0)`` of two equally shaped bf16 tensors whose
+    element count is a multiple of 8."""
+    _require(dy, "dy", torch.bfloat16, tuple(gate.shape))
+    _require(gate, "gate", torch.bfloat16, tuple(gate.shape))
+    if dy.numel() % 8:
+        raise ValueError(f"relu_gate takes a multiple of 8 elements, got {dy.numel()}")
+    out = torch.empty_like(dy)
+    lib = library()
+    _check_launch(lib, lib.st_relu_gate(_ptr(dy), _ptr(gate), _ptr(out), dy.numel(), _stream()),
+                  "relu_gate")
+    count.add("relu_gate", (dy.numel(),))
     return out

@@ -14,7 +14,10 @@ in-place update bumps ``_version`` and yields a new preparation. The cache
 holds at most :data:`MAX_ENTRIES` entries per device (the least recently
 used entry of that device out first): VGG-19 up to conv5_1 needs 13 taps in
 two forms and 13 biases on each card (39); the one-pass block-1 kernels add
-conv1_1's padded (32, 64) taps and two fp32 biases. A mesh over N distinct
+conv1_1's padded (32, 64) taps and two fp32 biases. ResNet-50 needs 53
+kernels in two forms (the 1x1 and strided ones as GEMM operands,
+:func:`gemm` and :func:`gemm_t`; the stride-1 3x3s as taps) and 53 biases:
+159 entries, so the cache keeps :data:`MAX_ENTRIES` of them. A mesh over N distinct
 cards (``parallel/mesh.py``) keeps each card's weights there, so the cache
 holds N such sets, and no card's entries evict another's.
 """
@@ -26,7 +29,7 @@ from collections import OrderedDict
 import torch
 
 #: Most entries kept per device (least recently used out first).
-MAX_ENTRIES = 64
+MAX_ENTRIES = 192
 
 _cache: "OrderedDict[tuple, tuple]" = OrderedDict()
 
@@ -57,13 +60,31 @@ def pad_conv1_taps(k1: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def gemm_operand(w: torch.Tensor) -> torch.Tensor:
+    """(kh, kw, Cin, Cout) HWIO taps -> the (Kp, Cout) bf16 operand of
+    ``csrc/conv1x1.cu``: row ``(ky * kw + kx) * Cin + ci`` holds that tap's
+    output channels, the order ``csrc/im2col.cu`` lays an input pixel's
+    columns in; rows beyond kh kw Cin, up to the next multiple of 8
+    (``Kp``), are zero."""
+    k = w.shape[0] * w.shape[1] * w.shape[2]
+    out = torch.zeros((-(-k // 8) * 8, w.shape[3]), dtype=torch.bfloat16, device=w.device)
+    out[:k] = w.reshape(k, w.shape[3]).to(torch.bfloat16)
+    return out
+
+
+def gemm_operand_t(w: torch.Tensor) -> torch.Tensor:
+    """The backward-data operand: :func:`gemm_operand` transposed, (Cout,
+    Kp) bf16, contiguous."""
+    return gemm_operand(w).T.contiguous()
+
+
 def as_fp32(t: torch.Tensor) -> torch.Tensor:
     """``t`` as a contiguous fp32 tensor (``t`` itself if it is one)."""
     return t.to(torch.float32).contiguous()
 
 
 _FORMS = {"bf16": as_bf16, "taps_t": transpose_taps, "conv1_taps": pad_conv1_taps,
-          "fp32": as_fp32}
+          "fp32": as_fp32, "gemm": gemm_operand, "gemm_t": gemm_operand_t}
 
 
 def _prepared(t: torch.Tensor, form: str) -> torch.Tensor:
@@ -96,6 +117,16 @@ def taps_transposed(w: torch.Tensor) -> torch.Tensor:
 def conv1_taps(k1: torch.Tensor) -> torch.Tensor:
     """Cached :func:`pad_conv1_taps` of conv1_1's (3, 3, 3, 64) weight tensor."""
     return _prepared(k1, "conv1_taps")
+
+
+def gemm(w: torch.Tensor) -> torch.Tensor:
+    """Cached :func:`gemm_operand` of an HWIO weight tensor."""
+    return _prepared(w, "gemm")
+
+
+def gemm_t(w: torch.Tensor) -> torch.Tensor:
+    """Cached :func:`gemm_operand_t` of an HWIO weight tensor."""
+    return _prepared(w, "gemm_t")
 
 
 def fp32(t: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,8 @@ rows, upper triangle only, and adds them in a fixed order in a second pass —
 the kernel the chain's fused Grams use, here without a column window; the
 backward is its ``F S`` kernel with ``S = (g + g^T) / M`` rounded to bf16, as
 the chain's wrappers round it, and one bf16 rounding of the result. It takes
-bf16 activations with C a multiple of 64 (every VGG width); another dtype
-raises, as the chain does. The TPU kernel's backward is outside its Pallas
+bf16 activations with C a multiple of 64 (every VGG width, and ResNet-50's
+64-2048); another dtype raises, as the chain does. The TPU kernel's backward is outside its Pallas
 kernel (a plain fp32 einsum); on the H100 the ``F S`` kernel takes half the
 time of that fp32 product at every shape ``chip_smoke.py`` times (PERF.md).
 
@@ -21,11 +21,14 @@ On a CPU tensor it runs :func:`gram_plain` under autograd.
 :func:`gram_matrix` dispatches by channel width through :data:`KERNEL_CHANNELS`,
 read at call time; it is the counterpart of the reference's
 ``_PALLAS_CHANNELS`` and the tests patch both to the same widths. The set
-holds every VGG width: on the H100 the kernel made the objective step's
-device time shorter at each of them, at 1024, 512 and 256 px
+holds every VGG width and ResNet-50's stage outputs' 1024 and 2048 (its
+64, 256 and 512 are VGG's): on the H100 the kernel made the objective
+step's device time shorter at each VGG width, at 1024, 512 and 256 px
 (``chip_smoke.py``, phase ``objective``; the numbers are in PERF.md) — the
 plain version casts the bf16 activation to fp32 and runs an fp32 product
-outside the tensor cores. On the host the two paths cost the same per call.
+outside the tensor cores — and ``chip_smoke.py``'s kernel phase times the
+two wider ones at the 2048^2 ResNet cell's shapes (128^2 x 1024, 64^2 x
+2048) against that plain contraction. On the host the two paths cost the same per call.
 :data:`KERNEL_MIN_ELEMENTS` is the least activation size that goes to the
 kernel; it is 0 since the tensor-core kernel has no floor worth a gate (it
 was 2^23 while the kernel ran on the CUDA cores). On the TPU the set is empty
@@ -47,7 +50,7 @@ from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
 launches = LaunchCount("gram")
 
 #: Channel widths that :func:`gram_matrix` sends to the kernel.
-KERNEL_CHANNELS: frozenset = frozenset({64, 128, 256, 512})
+KERNEL_CHANNELS: frozenset = frozenset({64, 128, 256, 512, 1024, 2048})
 
 #: Least size of the activation, in elements, at which it sends them there.
 KERNEL_MIN_ELEMENTS: int = 0

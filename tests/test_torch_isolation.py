@@ -30,6 +30,8 @@ MODULES = [
     "style_transfer_tpu_torch.linesearch",
     "style_transfer_tpu_torch.optim",
     "style_transfer_tpu_torch.schedule",
+    "style_transfer_tpu_torch.models",
+    "style_transfer_tpu_torch.models.resnet",
     "style_transfer_tpu_torch.models.vgg",
     "style_transfer_tpu_torch.models.weights",
     "style_transfer_tpu_torch.ops.losses",
@@ -43,6 +45,7 @@ MODULES = [
     "style_transfer_tpu_torch.ops.kernels.dispatch",
     "style_transfer_tpu_torch.ops.kernels.epilogue",
     "style_transfer_tpu_torch.ops.kernels.gram",
+    "style_transfer_tpu_torch.ops.kernels.resnet",
     "style_transfer_tpu_torch.ops.kernels.tolerances",
     "style_transfer_tpu_torch.parallel",
     "style_transfer_tpu_torch.parallel.dryrun",
@@ -118,7 +121,7 @@ def test_build_is_keyed_on_the_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert {p.name for p in _build._sources()} == {
-        "block1.cu", "conv3x3.cu", "epilogue.cu", "gram.cu", "tv.cu"}
+        "block1.cu", "conv1x1.cu", "conv3x3.cu", "epilogue.cu", "gram.cu", "im2col.cu", "tv.cu"}
     assert _build._digest() in path.name
 
 
