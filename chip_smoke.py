@@ -829,7 +829,10 @@ def resnet_rates(torch):
     launches of one objective evaluation of the 2048^2 cell
     (``resnet50-adam-2048``'s layers, recorded by ``trace.recording()``):
     for each kernel, over the step, its device ms (profiler, each distinct
-    launch timed alone, times its count), its plain fp32 form's, the cuDNN
+    launch timed alone, times its count; ``launches`` lists each distinct
+    launch with its count, ms, bound, share of its roofline, the device
+    symbols it ran and, for the 1x1 GEMM, the tile width read from its
+    symbol, ``conv1x1_kernel<width, extras>``), its plain fp32 form's, the cuDNN
     call's that does the same work (where one does; by CUDA events: the
     profiler has missed cuDNN's device time here) and the bound, with
     each distinct launch's error against the plain form (within
@@ -838,6 +841,8 @@ def resnet_rates(torch):
     faster than from memory); the edge cases of :data:`RESNET_EDGES`; and
     the Gram kernel at ResNet's 1024 and 2048 channels (128^2 and 64^2)
     against the plain fp32 contraction and ``f.T @ f`` + ``f @ S``."""
+    import re
+
     from style_transfer_tpu_torch import StyleTransfer, StylizeConfig, trace
     from style_transfer_tpu_torch.models import resnet as R
     from style_transfer_tpu_torch.ops import losses
@@ -869,7 +874,7 @@ def resnet_rates(torch):
     trace.clear()
     step_ms, _, by_name = _device_by_name(torch, step, reps=2, top=40)
 
-    rows, above, worst = {}, [], {}
+    rows, above, worst, per_launch = {}, [], {}, []
     for (kernel, shape), n in sorted(launches.items(), key=lambda kv: str(kv[0])):
         fn, plain, lib, nbytes, flops = _resnet_launch(torch, kernel, shape)
         got, want = fn(), plain()
@@ -878,7 +883,7 @@ def resnet_rates(torch):
         worst[kernel] = max(worst.get(kernel, 0.0), err)
         if err > TOL_ACT:
             raise AssertionError(f"{kernel} {shape}: relative error {err} against its plain form")
-        ms = _device_ms(torch, fn)
+        ms, _, symbols = _device_profile(torch, fn)
         bound, by = _bound(nbytes, flops, "bf16")
         if bound / ms > 1.0:
             above.append({"kernel": kernel, "shape": list(shape), "share": bound / ms, "by": by})
@@ -890,6 +895,12 @@ def resnet_rates(torch):
         r["library_ms"] += n * (statistics.median(_wall_ms(torch, lib, reps=5))
                                 if lib is not None else 0.0)
         r["bound_ms"] += n * bound
+        widths = sorted({int(m) for name in symbols
+                         for m in re.findall(r"conv1x1_kernel<(\d+)", name)})
+        per_launch.append({"kernel": kernel, "shape": list(shape), "count": n, "ms": ms,
+                           "bound_ms": bound, "bound_by": by, "roofline_pct": 100.0 * bound / ms,
+                           "width": widths[0] if len(widths) == 1 else None,
+                           "symbols": symbols})
         torch.cuda.empty_cache()
     for kernel, r in rows.items():
         r["roofline_pct"] = 100.0 * r["bound_ms"] / r["ms"]
@@ -929,7 +940,7 @@ def resnet_rates(torch):
             raise AssertionError(f"the Gram at {hw} x {c}: relative error {err}")
     emit({"phase": "kernel", "kernel": "resnet_rates", "scale": 2048, "card": card,
           "step_device_ms": step_ms, "step_by_name": by_name, "kernels": rows,
-          "above_roofline": above, "edges": edges, "grams": grams})
+          "launches": per_launch, "above_roofline": above, "edges": edges, "grams": grams})
     if bad:
         raise AssertionError(f"ResNet edge cases beyond TOL_ACT: {bad}")
     del st, targets, img

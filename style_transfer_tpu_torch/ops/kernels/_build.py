@@ -59,8 +59,8 @@ _SIGNATURES = {
     "st_block1_partials": [_I, _I],
     "st_block1_info": [ctypes.POINTER(ctypes.c_int)],
     "st_block1_col2im": [_P, _P, _I, _I, _P],
-    "st_conv1x1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "st_conv1x1_info": [ctypes.POINTER(ctypes.c_int)],
+    "st_conv1x1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "st_conv1x1_info": [_I, ctypes.POINTER(ctypes.c_int)],
     "st_im2col": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "st_col2im": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "st_maxpool_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

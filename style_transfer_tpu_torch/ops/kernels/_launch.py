@@ -22,7 +22,9 @@ launcher's name and the shape its operations and bytes follow from:
 - ``conv1x1_fwd``: ``(H, W, K, N, stride, residual, relu)``, H x W the
   input's extent (the output's is ``ceil(H / stride)`` x ``ceil(W /
   stride)``), K input and N output channels, whether a residual is added
-  and the ReLU applied (the bias always is);
+  and the ReLU applied (the bias always is). The tile width the launch
+  takes is ``conv1x1_width(N)``, so the shape says it (as it does for
+  ``conv1x1_bwd_data``: ``conv1x1_width(N, gate)``);
 - ``conv1x1_bwd_data``: ``(H, W, K, N, add, add_sub, gate)``, H x W the
   extent of the cotangent and of the output, K the cotangent's channels
   and N the output's, whether an ``add`` operand is given (at half the
@@ -665,12 +667,26 @@ def _opt(t: Optional[torch.Tensor], name: str, dtype: torch.dtype, shape) -> Non
         _require(t, name, dtype, shape)
 
 
-#: Output pixels (rows, columns) and channels of a block of ``csrc/conv1x1.cu``,
-#: its reduction channels per chunk, and its blocks per SM; ``chip_smoke.py``
-#: holds them against the built library (``st_conv1x1_info``).
-CONV1X1_TILE = (8, 16, 128)
+#: Output pixels (rows, columns) of a tile of ``csrc/conv1x1.cu``, the tile
+#: widths (output channels) the library builds, its reduction channels per
+#: chunk, and its blocks per SM (persistent: one, walking the tiles); the
+#: ``cuda`` tests hold them against the built library (``st_conv1x1_info``).
+CONV1X1_TILE = (8, 16)
+CONV1X1_WIDTHS = (64, 128)
 CONV1X1_KC = 64
-CONV1X1_BLOCKS_PER_SM = 2
+CONV1X1_BLOCKS_PER_SM = 1
+
+
+def conv1x1_width(n: int, gate: bool = False) -> int:
+    """The tile width ``csrc/conv1x1.cu`` takes for N output channels: 64
+    where a 128-wide tile would leave half or more of its columns empty (N =
+    64, and the stem's 152 = 128 + 24), and where the tile reads a gate (the
+    backward's ReLU gate: a 128-wide tile's output and gate fill 64 KB of
+    shared memory, 96 KB with an add, so no more than two tiles' operands
+    would be in flight; on an H100, the 25 gated launches of a 2048^2
+    ResNet-50 step with N >= 128 take 1.22 ms at 64 against 1.37 at 128);
+    else 128. The library builds a gated tile at 64 only."""
+    return 64 if -(-n // 128) * 128 - n >= 64 or gate else 128
 
 
 def strided_hw(h: int, w: int, stride: int) -> Tuple[int, int]:
@@ -694,7 +710,8 @@ def _conv1x1(x, w, *, bias, add, gate, relu: bool, stride: int, add_sub: bool):
     y = torch.empty((ho, wo, n), dtype=torch.bfloat16, device=x.device)
     lib = library()
     err = lib.st_conv1x1(_ptr(x), _ptr(w), _ptr(bias), _ptr(add), _ptr(gate), _ptr(y), h, wd, k,
-                         n, stride, int(relu), int(add_sub), _stream())
+                         n, stride, int(relu), int(add_sub), conv1x1_width(n, gate is not None),
+                         _stream())
     _check_launch(lib, err, "conv1x1")
     return y
 

@@ -284,3 +284,130 @@ def test_the_wrappers_cpu_forms_are_the_models_and_freeze_the_weights():
     assert RK.launches.n == 0
     with pytest.raises(ValueError, match="CUDA or CPU"):
         RK.stage(torch.zeros(1, 4, 4, 64, device="meta"), p, 1)
+
+
+def _step_launches(monkeypatch, size):
+    """The kernel launches of one objective step (forward through the stem
+    and the four stages, backward from every layer) at ``size``², as
+    ``trace.counts()`` records them: the wrappers' own code on shape-only
+    (meta) tensors, with the library's entry points, the checks of device
+    and alignment, and the stream read replaced."""
+    from style_transfer_tpu_torch import trace
+    from style_transfer_tpu_torch.ops.kernels import _weights
+
+    class _Library:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    monkeypatch.setattr(_launch, "library", lambda: _Library())
+    monkeypatch.setattr(_launch, "_require", lambda *args, **kwargs: None)
+    monkeypatch.setattr(_launch, "_stream", lambda: 0)
+    meta = {"device": "meta"}
+    p = {n: {"kernel": torch.empty(kh, kw, ci, co, **meta), "bias": torch.empty(co, **meta)}
+         for n, (kh, kw, ci, co, _) in R.CONV_SHAPES.items()}
+    x = torch.empty(1, size, size, 3, dtype=torch.bfloat16, requires_grad=True, **meta)
+    trace.clear()
+    before = RK.launches.n
+    try:
+        with trace.recording():
+            pooled, act = RK.StemPoolFunction.apply(x, p["conv1"]["kernel"], p["conv1"]["bias"])
+            outs = [act]
+            for s in range(1, 5):
+                pooled = RK.StageFunction.apply(pooled, s, *RK.stage_weights(p, s))
+                outs.append(pooled)
+            torch.autograd.backward(outs, [torch.empty(o.shape, dtype=torch.bfloat16, **meta)
+                                           for o in outs])
+        return dict(trace.counts())
+    finally:
+        trace.clear()
+        _weights.clear()
+        RK.launches.n = before
+
+
+# The 1x1 GEMM launches of one 2048^2 step of ``resnet50-adam-2048``:
+# (launcher, shape) -> (launches, tile width of ``_launch.conv1x1_width``)
+STEP_2048_CONV1X1 = {
+    ("conv1x1_fwd", (1024, 1024, 152, 64, 1, False, True)): (1, 64),
+    ("conv1x1_fwd", (512, 512, 64, 64, 1, False, True)): (1, 64),
+    ("conv1x1_fwd", (512, 512, 64, 256, 1, True, True)): (3, 128),
+    ("conv1x1_fwd", (512, 512, 64, 256, 1, False, False)): (1, 128),
+    ("conv1x1_fwd", (512, 512, 256, 64, 1, False, True)): (2, 64),
+    ("conv1x1_fwd", (512, 512, 256, 128, 1, False, True)): (1, 128),
+    ("conv1x1_fwd", (512, 512, 256, 512, 2, False, False)): (1, 128),
+    ("conv1x1_fwd", (256, 256, 1152, 128, 1, False, True)): (1, 128),
+    ("conv1x1_fwd", (256, 256, 128, 512, 1, True, True)): (4, 128),
+    ("conv1x1_fwd", (256, 256, 512, 128, 1, False, True)): (3, 128),
+    ("conv1x1_fwd", (256, 256, 512, 256, 1, False, True)): (1, 128),
+    ("conv1x1_fwd", (256, 256, 512, 1024, 2, False, False)): (1, 128),
+    ("conv1x1_fwd", (128, 128, 2304, 256, 1, False, True)): (1, 128),
+    ("conv1x1_fwd", (128, 128, 256, 1024, 1, True, True)): (6, 128),
+    ("conv1x1_fwd", (128, 128, 1024, 256, 1, False, True)): (5, 128),
+    ("conv1x1_fwd", (128, 128, 1024, 512, 1, False, True)): (1, 128),
+    ("conv1x1_fwd", (128, 128, 1024, 2048, 2, False, False)): (1, 128),
+    ("conv1x1_fwd", (64, 64, 4608, 512, 1, False, True)): (1, 128),
+    ("conv1x1_fwd", (64, 64, 512, 2048, 1, True, True)): (3, 128),
+    ("conv1x1_fwd", (64, 64, 2048, 512, 1, False, True)): (2, 128),
+    ("conv1x1_bwd_data", (1024, 1024, 64, 152, False, False, False)): (1, 64),
+    ("conv1x1_bwd_data", (512, 512, 64, 64, True, False, False)): (1, 64),
+    ("conv1x1_bwd_data", (512, 512, 64, 256, True, False, True)): (2, 64),
+    ("conv1x1_bwd_data", (512, 512, 256, 64, False, False, True)): (3, 64),
+    ("conv1x1_bwd_data", (512, 512, 256, 64, False, False, False)): (1, 64),
+    ("conv1x1_bwd_data", (512, 512, 128, 256, True, True, False)): (1, 128),
+    ("conv1x1_bwd_data", (256, 256, 128, 1152, False, False, False)): (1, 128),
+    ("conv1x1_bwd_data", (256, 256, 128, 512, True, False, True)): (3, 64),
+    ("conv1x1_bwd_data", (256, 256, 512, 128, False, False, True)): (4, 64),
+    ("conv1x1_bwd_data", (256, 256, 512, 256, False, False, False)): (1, 128),
+    ("conv1x1_bwd_data", (256, 256, 256, 512, True, True, False)): (1, 128),
+    ("conv1x1_bwd_data", (128, 128, 256, 2304, False, False, False)): (1, 128),
+    ("conv1x1_bwd_data", (128, 128, 256, 1024, True, False, True)): (5, 64),
+    ("conv1x1_bwd_data", (128, 128, 1024, 256, False, False, True)): (6, 64),
+    ("conv1x1_bwd_data", (128, 128, 1024, 512, False, False, False)): (1, 128),
+    ("conv1x1_bwd_data", (128, 128, 512, 1024, True, True, False)): (1, 128),
+    ("conv1x1_bwd_data", (64, 64, 512, 4608, False, False, False)): (1, 128),
+    ("conv1x1_bwd_data", (64, 64, 512, 2048, True, False, True)): (2, 64),
+    ("conv1x1_bwd_data", (64, 64, 2048, 512, False, False, True)): (3, 64),
+    ("conv1x1_bwd_data", (64, 64, 2048, 1024, False, False, False)): (1, 128),
+}
+
+
+def test_conv1x1_width_over_a_2048_step(monkeypatch):
+    """The 80 launches of ``csrc/conv1x1.cu`` that one 2048^2 step of
+    ResNet-50 records (stem, 16 bottlenecks, both directions; 132 wrapper
+    launches in all), and the tile width each takes: 64 for N = 64 and the
+    stem's N = 152, and where a launch reads a gate; 128 for the others.
+    The width follows from the recorded shape, so the launch counter says
+    how often each variant runs."""
+    counts = _step_launches(monkeypatch, 2048)
+    assert sum(counts.values()) == 132 - 12  # the 5 Grams, 5 F S and 2 TV launches are the loss's
+    got = {(k, shape): n for (_, k, shape), n in counts.items() if k.startswith("conv1x1")}
+    assert got == {key: n for key, (n, _) in STEP_2048_CONV1X1.items()}
+    assert sum(got.values()) == 80
+    for (kernel, shape), (_, width) in STEP_2048_CONV1X1.items():
+        if kernel == "conv1x1_fwd":
+            assert _launch.conv1x1_width(shape[3]) == width, shape
+        else:
+            assert _launch.conv1x1_width(shape[3], shape[6]) == width, shape
+    widths = [w for n, w in STEP_2048_CONV1X1.values() for _ in range(n)]
+    assert (widths.count(64), widths.count(128)) == (35, 45)
+
+
+@pytest.mark.parametrize("n, gate, width", [
+    (64, False, 64), (72, False, 128), (128, False, 128), (136, False, 64), (152, False, 64),
+    (256, False, 128), (256, True, 64), (2048, True, 64), (4608, False, 128)])
+def test_conv1x1_width_rule(n, gate, width):
+    assert _launch.conv1x1_width(n, gate) == width
+    assert width in _launch.CONV1X1_WIDTHS
+
+
+@pytest.mark.parametrize("k, n, stride, match", [
+    (60, 64, 1, "multiples of 8"), (64, 100, 1, "multiples of 8"), (32, 64, 1, "at least 64"),
+    (64, 56, 1, "at least 64"), (64, 64, 3, "stride 1 or 2")])
+def test_conv1x1_launcher_refuses_what_the_kernel_does_not_take(monkeypatch, k, n, stride, match):
+    """The launcher raises before the library is reached, with no fallback."""
+    monkeypatch.setattr(_launch, "_require", lambda *args, **kwargs: None)
+    monkeypatch.setattr(_launch, "library", lambda: pytest.fail("the library was reached"))
+    x = torch.empty(16, 16, k, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(k, n, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match=match):
+        _launch.conv1x1_fwd(x, w, torch.empty(n, dtype=torch.bfloat16, device="meta"),
+                            stride=stride, count=RK.launches)

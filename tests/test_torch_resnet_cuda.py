@@ -115,6 +115,125 @@ def test_cuda_conv1x1_bwd_data_matches_plain(name, cuda_device):
         assert bool((y[gt <= 0] == 0).all())
 
 
+# (launcher, shape) at the tile width ``_launch.conv1x1_width`` gives it
+# (64: N = 64, 136, 152, and every gated launch; 128: N = 72, 128, 200, 256
+# and up without a gate), so that each width runs: K of one chunk (64) and
+# with a ragged last chunk (152), ragged pixel edges, stride 2 through TMA
+# element strides, add_sub at odd extents, an add and a gate together,
+# persistent grids of one tile, of fewer tiles than SMs and of many times
+# more, and N not a multiple of 64 over more pixel tiles than SMs (a block
+# then takes a pixel tile's N tiles itself)
+WIDTH_CASES = {
+    "k64_n64": ("conv1x1_fwd", (512, 512, 64, 64, 1, False, True)),
+    "k64_n256": ("conv1x1_fwd", (512, 512, 64, 256, 1, True, True)),
+    "k152_stem": ("conv1x1_fwd", (1024, 1024, 152, 64, 1, False, True)),
+    "k152_n128_odd": ("conv1x1_fwd", (37, 23, 152, 128, 1, True, True)),
+    "n152_stem_bwd": ("conv1x1_bwd_data", (1024, 1024, 64, 152, False, False, False)),
+    "k152_n152_odd": ("conv1x1_bwd_data", (37, 23, 152, 152, True, False, True)),
+    "few_tiles": ("conv1x1_fwd", (64, 64, 2048, 512, 1, False, True)),
+    "few_tiles_gate": ("conv1x1_bwd_data", (64, 64, 2048, 512, False, False, True)),
+    "one_tile": ("conv1x1_bwd_data", (5, 9, 64, 64, True, False, True)),
+    "one_tile_n128": ("conv1x1_fwd", (5, 9, 64, 128, 1, True, False)),
+    "stride2_odd": ("conv1x1_fwd", (37, 23, 64, 136, 2, True, True)),
+    "stride2_proj": ("conv1x1_fwd", (128, 128, 1024, 2048, 2, False, False)),
+    "sub_odd": ("conv1x1_bwd_data", (37, 23, 64, 72, True, True, False)),
+    "sub_odd_n64": ("conv1x1_bwd_data", (37, 23, 128, 64, True, True, False)),
+    "sub_odd_gate": ("conv1x1_bwd_data", (19, 45, 128, 200, True, True, True)),
+    "add_gate": ("conv1x1_bwd_data", (256, 256, 128, 512, True, False, True)),
+    "add_n512": ("conv1x1_bwd_data", (256, 256, 128, 512, True, False, False)),
+    "n200_own_rows": ("conv1x1_fwd", (200, 100, 64, 200, 1, True, True)),
+}
+
+
+def _conv1x1_case(kernel, shape, dev, seed):
+    """``(run(), plain fp32 result, gate or None)`` of one launch on random
+    bf16 operands."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kernel == "conv1x1_fwd":
+        h, w, k, n, stride, residual, relu = shape
+        x = _bf((h, w, k), dev, g, positive=True)
+        wt = _bf((k, n), dev, g, scale=(2.0 / k) ** 0.5)
+        b = _bf((n,), dev, g, scale=0.1)
+        res = _bf(_launch.strided_hw(h, w, stride) + (n,), dev, g) if residual else None
+        return (lambda: _launch.conv1x1_fwd(x, wt, b, stride=stride, residual=res, relu=relu,
+                                            count=RK.launches),
+                RK.conv1x1_plain(x, wt, b, stride=stride, add=res, relu=relu), None)
+    h, w, k, n, add, add_sub, gate = shape
+    dy = _bf((h, w, k), dev, g)
+    wt = _bf((k, n), dev, g, scale=(2.0 / k) ** 0.5)
+    a = _bf(_launch.strided_hw(h, w, 2) + (n,) if add_sub else (h, w, n), dev, g) if add else None
+    gt = _bf((h, w, n), dev, g) if gate else None
+    return (lambda: _launch.conv1x1_bwd_data(dy, wt, add=a, add_sub=add_sub, gate=gt,
+                                             count=RK.launches),
+            RK.conv1x1_plain(dy, wt, add=a, add_sub=add_sub, gate=gt), gt)
+
+
+def _case_width(kernel, shape):
+    return _launch.conv1x1_width(shape[3], kernel == "conv1x1_bwd_data" and shape[6])
+
+
+def _case_tiles(kernel, shape):
+    """Output tiles of the launch: 8 x 16 pixels x its width's channels."""
+    ho, wo = _launch.strided_hw(shape[0], shape[1], shape[4]) if kernel == "conv1x1_fwd" \
+        else shape[:2]
+    th, tw = _launch.CONV1X1_TILE
+    return -(-ho // th) * -(-wo // tw) * -(-shape[3] // _case_width(kernel, shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIDTH_CASES))
+def test_cuda_conv1x1_each_width_matches_plain(name, cuda_device):
+    kernel, shape = WIDTH_CASES[name]
+    run, ref, gate = _conv1x1_case(kernel, shape, cuda_device, 8)
+    y = run()
+    assert y.shape == ref.shape and y.dtype == torch.bfloat16
+    assert _rel(y, ref) < T.TOL_ACT
+    if gate is not None:
+        assert bool((y[gate <= 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_conv1x1_cases_span_widths_and_grids(cuda_device):
+    """The width cases run both tile widths, each over persistent grids of
+    one tile, of fewer tiles than the card's SMs and of more than eight
+    times as many (the grid is one block an SM, each walking its tiles)."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for width in _launch.CONV1X1_WIDTHS:
+        tiles = [_case_tiles(k, sh) for k, sh in WIDTH_CASES.values()
+                 if _case_width(k, sh) == width]
+        assert min(tiles) == 1, width
+        assert any(1 < t < sms for t in tiles) and max(tiles) > 8 * sms, width
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["k64_n64", "k64_n256", "n152_stem_bwd", "sub_odd_gate",
+                                  "add_gate", "add_n512"])
+def test_cuda_conv1x1_launches_repeat_bit_for_bit(name, cuda_device):
+    """Two launches on the same inputs give the same bits: every output has
+    one owner that sums in a fixed order, whatever tile a block walks when."""
+    kernel, shape = WIDTH_CASES[name]
+    run, _, _ = _conv1x1_case(kernel, shape, cuda_device, 9)
+    first = run()
+    assert torch.equal(first, run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width, gate", [(96, False), (128, True)])
+def test_cuda_conv1x1_library_refuses_what_it_does_not_build(width, gate, cuda_device):
+    """The library builds tiles 64 and 128 wide and a gate only at 64 (where
+    the launcher sends every gated launch); it refuses the rest."""
+    from style_transfer_tpu_torch.ops.kernels._build import library
+
+    x = torch.zeros(16, 16, 64, dtype=torch.bfloat16, device=cuda_device)
+    w = torch.zeros(64, 128, dtype=torch.bfloat16, device=cuda_device)
+    y = torch.empty(16, 16, 128, dtype=torch.bfloat16, device=cuda_device)
+    g = torch.ones_like(y) if gate else None
+    err = library().st_conv1x1(x.data_ptr(), w.data_ptr(), None, None,
+                               g.data_ptr() if gate else None, y.data_ptr(), 16, 16, 64, 128,
+                               1, 0, 0, width, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+
+
 # (H, W, C, k, stride, Kp, gate)
 COLS = {
     "stem": (2048, 2048, 3, 7, 2, 152, False),
@@ -298,8 +417,10 @@ def test_cuda_conv1x1_tile_is_the_built_librarys(cuda_device):
     from style_transfer_tpu_torch.ops.kernels._build import library
 
     out = (ctypes.c_int * 7)()
-    assert library().st_conv1x1_info(out) == 0
-    th, tw, bn, _, smem, minb, kc = out
-    assert (th, tw, bn) == _launch.CONV1X1_TILE and kc == _launch.CONV1X1_KC
-    assert minb == _launch.CONV1X1_BLOCKS_PER_SM and minb * smem <= 228 * 1024
+    for width in _launch.CONV1X1_WIDTHS:
+        assert library().st_conv1x1_info(width, out) == 0
+        th, tw, bn, _, smem, minb, kc = out
+        assert (th, tw) == _launch.CONV1X1_TILE and bn == width and kc == _launch.CONV1X1_KC
+        assert minb == _launch.CONV1X1_BLOCKS_PER_SM and minb * smem <= 228 * 1024
+    assert library().st_conv1x1_info(96, out) != 0
     assert _weights.gemm_operand(torch.zeros(7, 7, 3, 64)).shape == (R.STEM_COLUMNS, 64)
