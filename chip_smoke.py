@@ -119,7 +119,7 @@ Phases, one JSON object per line on stdout:
    px (bit-equal PNG and losses, each chain kernel's forward twice) and at
    4096x4096 on the chain and on the plain path, the stored path's peaks at
    2048^2 and 4096^2 on both with the linear fit behind
-   ``api.REMAT_AUTO_PIXELS*``;
+   ``api.REMAT_AUTO_PIXELS`` and ``networks.REMAT_AUTO_PIXELS_FUSED``;
    a ``--resume`` from the middle of the last scale (bit-equal);
    ``--profile-dir`` (the trace names the chain's kernels),
    ``--fused-block1`` and ``--unfused`` (which kernels launch); ``--web``
@@ -2037,7 +2037,7 @@ def lbfgs_check(torch, params, mean, std, steps):
 
 
 # The cli phase: the kernels each shipped configuration's path must launch,
-# and those it must not, read from the dispatch (api._chain_features,
+# and those it must not, read from the dispatch (networks.VGG.plan,
 # ops/kernels/dispatch.py): every configuration runs the default chain on
 # even extents, configuration 3 requests no conv5_1 (no conv_gram), and
 # configuration 5's 3840-wide scale (effective width >= 2048) runs every
@@ -2058,8 +2058,8 @@ CLI_CONFIGS = {
                            ("gram_tail",)),
 }
 #: Share of the card's 80 GB at which the auto-remat thresholds are placed
-#: (api.REMAT_AUTO_PIXELS*): the rest is left to the caching allocator's
-#: fragmentation and the CUDA context.
+#: (api.REMAT_AUTO_PIXELS, networks.REMAT_AUTO_PIXELS_FUSED): the rest is left to
+#: the caching allocator's fragmentation and the CUDA context.
 REMAT_SHARE = 0.75
 CARD_BYTES = 80e9
 
@@ -2274,7 +2274,7 @@ def cli_remat(torch, io, steps, sides=(2048, 4096)):
     """``--remat on`` against ``off`` (see :func:`cli_check`, part 2)."""
     import numpy as np
 
-    from style_transfer_tpu_torch import api
+    from style_transfer_tpu_torch import api, networks
 
     c1024 = io.content[(1024, 1024)]
     base = [c1024, io.styles[0], "-i", str(steps)] + io.conf("config2_multiscale_1024") + io.common
@@ -2325,7 +2325,7 @@ def cli_remat(torch, io, steps, sides=(2048, 4096)):
                 if route == "chain" and px == sides[1] and run["launches"]["conv_single"] == 0:
                     raise AssertionError(f"cli: the {px}^2 chain did not run the singles")
     fit = {}
-    for route, current in (("chain", api.REMAT_AUTO_PIXELS_FUSED),
+    for route, current in (("chain", networks.REMAT_AUTO_PIXELS_FUSED),
                            ("plain", api.REMAT_AUTO_PIXELS)):
         lo, hi = peaks[(route, sides[0], "off")], peaks[(route, sides[1], "off")]
         slope = (hi - lo) / (sides[1] ** 2 - sides[0] ** 2)  # MiB per pixel
@@ -2501,7 +2501,7 @@ def cli_check(torch, steps):
        plain path (``--unfused``), and the stored path's peaks at 2048^2 and
        4096^2 on both, the linear fit in pixels and where it reaches
        ``REMAT_SHARE`` of the card's 80 GB (the derivation of
-       ``api.REMAT_AUTO_PIXELS*``);
+       ``api.REMAT_AUTO_PIXELS`` and ``networks.REMAT_AUTO_PIXELS_FUSED``);
     3. resume: configuration 2 with ``--checkpoint-dir``, the last
        checkpoint removed so that the latest is in the middle of the last
        scale, ``--resume``: the output PNG equal to the uninterrupted run's;
@@ -3439,20 +3439,20 @@ def _mesh_config5(torch, params, mean, std, steps, devices, n):
     mesh = M.make_mesh(devices=list(devices)[:n])
     st = StyleTransfer(params, mean=mean, std=std, device=mesh.home, mesh=mesh)
     forms = {}
-    real_vgg = st._vgg
+    real_forward = st._forward
 
-    def vgg(cfg_, image, cl, sl, remat=False):
-        out = real_vgg(cfg_, image, cl, sl, remat)
-        if cl and sl:  # the objective, not a capture
+    def forward(plan, image, remat=False):
+        out = real_forward(plan, image, remat)
+        if torch.is_grad_enabled():  # the objective, not a capture
             forms[_hw(image)[0]] = [list(p) for p in st.last_route]
         return out
 
-    st._vgg = vgg
+    st._forward = forward
     shards = {}
     with _DispatchSpy(torch, st, sync_mode="warn") as spy:
         out, curves, summary, seconds, launches = _counted_stylize_events(
             torch, st, content, style, cfg, shards)
-    del st._vgg
+    del st._forward
     ref = StyleTransfer(params, mean=mean, std=std, device="cuda")
     out1, curves1, summary1, seconds1 = _stylize(torch, ref, content, style, cfg)
     st32 = StyleTransfer(params, mean=mean, std=std, device="cuda", compute_dtype=torch.float32)

@@ -8,41 +8,21 @@ and no donation: each scale captures its targets, then queues its chunks of
 optimizer steps from a Python loop and reads the per-step losses once per
 chunk.
 
-The objective keeps the JAX fused-chain dispatch (``api.py:644-918``):
-block 1 (``ops/kernels/block1.py``) -> block 2 -> block-3 front/tail
-segments -> block-4 front/tail segments -> the conv5_1 Gram tail, plus the
-fused TV loss (``epilogue.py``), under the same structural gates (average
-pooling, the per-block layer conditions, even extents at every pool
-boundary, VGG-19 for blocks 3-4, ``deeper == ("conv5_1",)`` for the Gram
-tail) and without the TPU-only ones (backend checks, mesh row gates). Each
-two-conv segment takes its form from the reference's size rule
-(``ops/kernels/dispatch.py``, JAX ``_seg_fn`` at ``api.py:723-746``): the
-fused pair (``block2.py``, ``conv_pair.py``) below effective width 2048,
-two singles (``conv_single.py``) from there on; conv5_1 runs
-``conv_gram.py`` up to effective width 2048 and ``conv_single.gram_tail``
-beyond it (``api.py:860-899``). Two departures from the reference's
-dispatch, both in ``dispatch.py``: block 1 stays on its kernel at every
-width, and the reference's W-sliced "wide" singles run unsliced. Block 4
-engages only when its whole block can chain (the JAX auto mode); the
-tail segment runs only when a deeper layer needs it — eager PyTorch has no
-dead-code elimination to drop an unused kernel.
+The network's forward is ``networks.py``'s: ``StyleTransfer`` picks the
+architecture's network once (VGG-19 or VGG-16: the fused kernel chain of the
+JAX ``api.py:644-918`` with its structural gates and size rule; ResNet-50:
+its kernels stage by stage) and asks it for a plan of each forward, which
+the objective makes once per image extent. The objective adds the fused TV
+loss (``epilogue.py``) and the Grams of the activations the plan leaves
+materialized (``_gram_fn``: ``ops/kernels/gram.py``, which sends the channel
+widths of its ``KERNEL_CHANNELS``, from ``KERNEL_MIN_ELEMENTS`` elements on,
+to the streaming Gram kernel).
 
-Content and style targets are captured through the same chain under
+Content and style targets are captured through the same network under
 ``torch.no_grad()`` (conv4_2 from the block-4 front segment, Grams from the
 chain's Gram outputs), so on the GPU the kernels carry all of the main
-path's VGG work. The JAX package captures through plain XLA instead
+path's network work. The JAX package captures through plain XLA instead
 (``api.py:992-999``); on the CPU both sides run plain ops, so they agree.
-
-``StylizeConfig(fused_block1=True)`` is the reference's opt-in objective
-(``api.py:480-489``, ``:919-958``) and takes precedence over the chain: block
-1 runs as ``block1_full`` (``ops/kernels/block1.py``, one pass from the
-image), blocks 2-5 as the plain ``extract_features(start_block=2)``, and the
-materialized activations go to ``_gram_fn`` (``ops/kernels/gram.py``, which
-sends the channel widths of its ``KERNEL_CHANNELS``, from
-``KERNEL_MIN_ELEMENTS`` elements on, to the streaming Gram kernel). Odd extents take the plain path. Content and style targets of that
-path are captured through the same functions. The reference engages it only
-up to W = 1024 (a limit of its TPU compiler); the port has no width limit
-(``ops/kernels/dispatch.py``).
 
 On a CUDA device the compute dtype is bf16 and the chain runs the
 hand-written kernels (which take bf16 only: another compute dtype on the
@@ -92,7 +72,8 @@ block. The backward then recomputes a kernel's forward (the same CUDA
 kernel, which gives the same bits launch to launch) instead of keeping its
 residuals across the step; only the handoffs between kernels stay live.
 ``remat=None`` turns it on from a pixel count measured on the H100
-(:data:`REMAT_AUTO_PIXELS`, :data:`REMAT_AUTO_PIXELS_FUSED`). Target capture
+(:data:`REMAT_AUTO_PIXELS`, or the network's ``remat_auto_pixels`` where its
+kernels carry every requested layer). Target capture
 runs under ``torch.no_grad()`` and takes no checkpoint.
 
 ``StyleTransfer(mesh=...)`` is the reference's spatial mesh
@@ -104,11 +85,9 @@ the image stays so through the scale, as the reference's ``shard_image``
 places it: the optimizer state (``optim.py``), the EMA, the display image
 and each pipelined record hold shards of the same rows on the same
 devices. The objective preprocesses each shard on its device, the chain
-sends each segment to its sharded form (``make_sharded_block1``,
-``make_sharded_pair`` for block 2 and the pairs, ``make_pair_of_singles(
-mesh=...)``, ``make_sharded_conv_gram``, ``make_sharded_gram_tail``), what
-the chain does not carry runs ``vgg.extract_features_sharded`` (the
-counterpart of the reference's XLA-partitioned fallback), and TV runs
+runs each segment's sharded form and ``vgg.extract_features_sharded`` for
+what it does not carry (the counterpart of the reference's XLA-partitioned
+fallback; ``networks.py``), and TV runs
 ``EP.make_sharded_tv_loss`` (the reference's ``make_sharded_tv_loss``, also
 on the plain route, with the plain per-shard sums). The content loss sums
 each shard's squared error on the home device and divides by the global
@@ -134,12 +113,9 @@ waits on the chunk's event and reads its losses and ``callback`` hands its
 event to the sink; ``output`` is the final quantize and copy to the host.
 
 ResNet-50 weights (``models/resnet.py``: the architecture follows from
-the parameter keys) take their own route: ``_vgg`` sends them, under
-``use_fused``, to :meth:`StyleTransfer._resnet_features` (the stem and its
-max pool, then each stage up to the deepest requested layer, on the kernels
-of ``ops/kernels/resnet.py``), else to the plain ``resnet.extract_features``;
-the loss terms, the optimizers, the loop and its pipelining are the ones
-VGG uses. ResNet-50 takes no mesh and no other pooling than its own.
+the parameter keys) take their network's route (``networks.py``); the loss
+terms, the optimizers, the loop and its pipelining are the ones VGG uses.
+ResNet-50 takes no mesh and no other pooling than its own.
 
 Left out (ROADMAP.md): background compiles (``warm_compile``: the port
 compiles nothing per scale), grid snapping and the 2^31 TPU resolution
@@ -160,23 +136,15 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-import torch.utils.checkpoint
 
 from style_transfer_tpu_torch import trace
 from style_transfer_tpu_torch import models
-from style_transfer_tpu_torch.models import resnet as resnet_mod
+from style_transfer_tpu_torch import networks
 from style_transfer_tpu_torch.models import vgg as vgg_mod
 from style_transfer_tpu_torch.models.weights import random_fixture
 from style_transfer_tpu_torch.ops import losses as L
-from style_transfer_tpu_torch.ops.kernels import block1 as B1
-from style_transfer_tpu_torch.ops.kernels import block2 as B2
-from style_transfer_tpu_torch.ops.kernels import conv_gram as CG
-from style_transfer_tpu_torch.ops.kernels import conv_pair as CP
-from style_transfer_tpu_torch.ops.kernels import conv_single as CS
-from style_transfer_tpu_torch.ops.kernels import dispatch
 from style_transfer_tpu_torch.ops.kernels import epilogue as EP
 from style_transfer_tpu_torch.ops.kernels import gram as KG
-from style_transfer_tpu_torch.ops.kernels import resnet as RK
 from style_transfer_tpu_torch.optim import OptimizerSpec, make_step_fn
 from style_transfer_tpu_torch.parallel import mesh as M
 from style_transfer_tpu_torch.schedule import _round_even, build_plan
@@ -238,8 +206,8 @@ class StylizeConfig:
     debug_checks: bool = False
     # Gradient rematerialization: recompute each kernel's (and each plain
     # block's) forward inside the backward instead of storing its residuals.
-    # None = auto: on from REMAT_AUTO_PIXELS pixels, or from
-    # REMAT_AUTO_PIXELS_FUSED where the full kernel chain carries the VGG.
+    # None = auto: on from REMAT_AUTO_PIXELS pixels, or from the network's
+    # remat_auto_pixels where its kernels carry every requested layer.
     remat: Optional[bool] = None
 
     def end_size(self, content_hw: Tuple[int, int]) -> Tuple[int, int]:
@@ -255,31 +223,20 @@ NO_CUDA_MESSAGE = (
     'available; pass device="cpu" to run on the CPU'
 )
 
-# Auto-remat thresholds, from the H100's own peaks (chip_smoke.py, phase
-# cli, part remat_fit; NVIDIA H100 80GB HBM3, 700 W): the peak device memory
-# of one stored-path scale of configuration 2's flags, measured at 2048^2
-# and 4096^2 and fit as linear in pixels, reaches 75% of the card's 80 GB
-# (57220 MiB; the rest is left to the caching allocator and the CUDA
-# context) at
-#   the full kernel chain: 3258.5 and 12220.3 MiB, 712.2 MiB/Mpx + 271.3 MiB
-#     -> 79.96 Mpx (8942 px square);
-#   the plain path (bf16): 7039.0 and 26984.0 MiB, 1585.1 MiB/Mpx + 390.7 MiB
-#     -> 35.85 Mpx (5988 px square).
-# (The reference's REMAT_AUTO_PIXELS are a 16 GB TPU's numbers.) Measured at
-# 4096^2, remat on the chain lowered the peak by 3% only (12220 -> 11835
-# MiB): block 1's backward transients, which remat does not remove, set it.
+# The plain path's auto-remat threshold, from the H100's own peaks
+# (chip_smoke.py, phase cli, part remat_fit; NVIDIA H100 80GB HBM3, 700 W):
+# the peak device memory of one stored-path scale of configuration 2's flags
+# on the plain path (bf16), measured at 2048^2 and 4096^2 (7039.0 and 26984.0
+# MiB) and fit as linear in pixels (1585.1 MiB/Mpx + 390.7 MiB), reaches 75%
+# of the card's 80 GB (57220 MiB; the rest is left to the caching allocator
+# and the CUDA context) at 35.85 Mpx (5988 px square). A plan the kernels
+# carry whole has its network's own threshold (``remat_auto_pixels`` in
+# ``networks.py``). (The reference's REMAT_AUTO_PIXELS are a 16 GB TPU's
+# numbers.)
 
 #: Pixels per image from which ``StylizeConfig.remat=None`` turns remat on
-#: where the plain path carries some of the VGG.
+#: where the plain path carries some of the network.
 REMAT_AUTO_PIXELS = 35_850_000
-#: The same where the full kernel chain carries it
-#: (:meth:`StyleTransfer._full_chain_dispatches`).
-REMAT_AUTO_PIXELS_FUSED = 79_960_000
-#: The same for ResNet-50 on its kernels: the pixels at which what its
-#: forward keeps for the backward, and the stem's im2col operand beside it
-#: (``models.resnet.peak_bytes_per_pixel``, 463 bytes a pixel), reach the
-#: chain's budget of 57220 MiB: 129.6 Mpx (11384 px square).
-REMAT_AUTO_PIXELS_RESNET = int(57220 * 2 ** 20 / resnet_mod.peak_bytes_per_pixel())
 
 
 def _pipeline_auto(cfg: StylizeConfig, pixels: int) -> bool:
@@ -460,13 +417,6 @@ def _callback_sink(callback: Optional[Callback]):
             sink.close()
 
 
-def _checkpointed(fn):
-    """``fn`` under a non-reentrant checkpoint: its forward runs again in the
-    backward. The kernels draw no random numbers, so no RNG state is kept."""
-    return functools.partial(torch.utils.checkpoint.checkpoint, fn, use_reentrant=False,
-                             preserve_rng_state=False)
-
-
 def _style_size(style_hw, scale_hw, style_scale: float) -> Tuple[int, int]:
     """Even-rounded style-image size for a scale."""
     long_side = max(32, int(round(max(scale_hw) * style_scale)))
@@ -479,26 +429,6 @@ def _hw(t) -> Tuple[int, int]:
     if isinstance(t, (list, tuple)):
         return sum(M.rows_of(t)), int(t[0].shape[2])
     return int(t.shape[1]), int(t.shape[2])
-
-
-def _even(t) -> bool:
-    h, w = _hw(t)
-    return h % 2 == 0 and w % 2 == 0
-
-
-def _segment(handoff, cin: int, cmid: int, *, pool: bool, gram: bool, block2: bool = False,
-             mesh: Optional[M.Mesh] = None):
-    """Kernel callable for one two-conv segment fed by ``handoff``, per
-    :func:`dispatch.segment_impl` (JAX ``_seg_fn``, ``api.py:723-746``), and
-    its name; with a ``mesh``, the sharded form."""
-    impl = dispatch.segment_impl(_hw(handoff)[1], cin, cmid, pool=pool, gram=gram)
-    if impl == "singles":
-        return CS.make_pair_of_singles(pool=pool, gram=gram, mesh=mesh), "singles"
-    if mesh is not None:
-        return CP.make_sharded_pair(mesh, pool=pool, gram=gram), "pair"
-    if block2:
-        return B2.block2_fused, "pair"
-    return (CP.pair_gram if gram else CP.pair_pool), "pair"
 
 
 def _mesh_content_loss(home: torch.device):
@@ -550,17 +480,9 @@ class StyleTransfer:
             params, fmean, fstd = random_fixture(0)
             mean = fmean if mean is None else mean
             std = fstd if std is None else std
-        arch = models.infer_arch(params)
-        if arch == resnet_mod.ARCH:
-            if mesh is not None:
-                raise ValueError("ResNet-50 does not run on a mesh: its strided convolutions "
-                                 "have no row-sharded form; use StyleTransfer without mesh=")
-            if pooling not in (None, resnet_mod.POOLING):
-                raise ValueError(f"ResNet-50 pools with its stem's {resnet_mod.POOLING!r} pool, "
-                                 f"got pooling={pooling!r}")
-            pooling = resnet_mod.POOLING
-        elif pooling is None:
-            pooling = "average"
+        self.arch = models.infer_arch(params)
+        # the architecture's forward, which checks pooling and mesh
+        self.net = networks.NETWORKS[self.arch](self.arch, pooling=pooling, mesh=mesh)
         self.mesh = mesh
         if mesh is not None:
             if device is not None and M.canonical_device(device) != mesh.home:
@@ -580,11 +502,10 @@ class StyleTransfer:
         self._std = torch.as_tensor(self.std).to(self.device)
         # where get_image / get_state copy a chunk's tensors to the host
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        self.pooling = pooling
+        self.pooling = self.net.pooling
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.compute_dtype = compute_dtype
-        self.arch = arch
         self.params = {
             name: {k: torch.as_tensor(v, dtype=torch.float32).to(self.device) for k, v in p.items()}
             for name, p in params.items()
@@ -616,43 +537,13 @@ class StyleTransfer:
         return M.scatter_rows(image, bounds, mesh)
 
     def _input(self, image):
-        """The preprocessed image in the compute dtype, and the scale's mesh
-        (None without one). On a mesh, the list of its row shards, each
-        preprocessed on its own device; a whole image is cut first
-        (:meth:`_shards`)."""
+        """The preprocessed image in the compute dtype. On a mesh, the list
+        of its row shards, each preprocessed on its own device; a whole image
+        is cut first (:meth:`_shards`)."""
         if self.mesh is None:
-            return imgio.preprocess(image, self._mean, self._std).to(self.compute_dtype), None
-        xs = self._shards(image)
-        return ([imgio.preprocess(x, *M.replicas(x.device, self._mean, self._std))
-                 .to(self.compute_dtype) for x in xs], self.mesh.take(len(xs)))
-
-    def _features(self, image: torch.Tensor, layers: Sequence[str],
-                  remat: bool = False) -> Dict[str, torch.Tensor]:
-        """Preprocess + the plain forward (VGG, or ResNet-50) on an NHWC
-        [0,1] image; under a mesh, per shard (each activation a list of
-        shards)."""
-        if self.arch == resnet_mod.ARCH:
-            x = imgio.preprocess(image, self._mean, self._std)
-            self.last_route = ((resnet_mod.ARCH, "plain"),)
-            return resnet_mod.extract_features(self.params, x, layers,
-                                               compute_dtype=self.compute_dtype, remat=remat)
-        if self.mesh is not None:
-            xs, _ = self._input(image)
-            self.last_route = (("vgg", "plain_sharded"),)
-            return vgg_mod.extract_features_sharded(
-                self.params, xs, layers, pooling=self.pooling, arch=self.arch, remat=remat)
-        x = imgio.preprocess(image, self._mean, self._std)
-        self.last_route = (("vgg", "plain"),)
-        return vgg_mod.extract_features(
-            self.params, x, layers, pooling=self.pooling,
-            compute_dtype=self.compute_dtype, arch=self.arch, remat=remat,
-        )
-
-    def _weights(self, *names):
-        out = []
-        for name in names:
-            out += [self.params[name]["kernel"], self.params[name]["bias"]]
-        return out
+            return imgio.preprocess(image, self._mean, self._std).to(self.compute_dtype)
+        return [imgio.preprocess(x, *M.replicas(x.device, self._mean, self._std))
+                .to(self.compute_dtype) for x in self._shards(image)]
 
     def _fused(self, cfg: StylizeConfig) -> bool:
         """Whether the chain runs: ``cfg.use_fused``. Its CUDA kernels take
@@ -665,12 +556,6 @@ class StyleTransfer:
                 "for the plain path"
             )
         return cfg.use_fused
-
-    def _chain(self, cfg: StylizeConfig) -> bool:
-        """Whether the fused chain carries the VGG work: ``use_fused`` without
-        ``fused_block1``, which takes precedence (``api.py:494``) off a
-        mesh."""
-        return self._fused(cfg) and not (cfg.fused_block1 and self.mesh is None)
 
     def _gram_fn(self, cfg: StylizeConfig):
         """Gram of a materialized activation (``api.py:408-413``); under a
@@ -693,68 +578,6 @@ class StyleTransfer:
                     "content_loss_fn": _mesh_content_loss(self.device)}
         return {"tv_loss_fn": EP.tv_loss} if cfg.use_fused else {}
 
-    def _block1_eligible(self, cfg: StylizeConfig) -> bool:
-        """Whether ``block1_full`` carries block 1 (``api.py:480-489``):
-        explicit opt-in, under ``use_fused`` and the structural gate, and
-        without a mesh."""
-        return (
-            cfg.fused_block1
-            and self.mesh is None
-            and self._fused(cfg)
-            and self._block1_structurally_eligible(cfg.content_layers, cfg.style_layers)
-        )
-
-    def _block1_structurally_eligible(self, content_layers, style_layers) -> bool:
-        """Average pooling, no block-1 activation demanded beyond conv1_1's
-        Gram, and at least one deeper layer for pool1 to feed."""
-        if self.pooling != "average":
-            return False
-        b1 = {"conv1_1", "conv1_2", "pool1"}
-        if set(content_layers) & b1 or set(style_layers) & (b1 - {"conv1_1"}):
-            return False
-        return any(l not in b1 for l in list(content_layers) + list(style_layers))
-
-    def _block2_eligible(self, content_layers, style_layers) -> bool:
-        if not self._block1_structurally_eligible(content_layers, style_layers):
-            return False
-        b2 = {"conv2_1", "conv2_2", "pool2"}
-        if set(content_layers) & b2 or set(style_layers) & (b2 - {"conv2_1"}):
-            return False
-        b12 = b2 | {"conv1_1", "conv1_2", "pool1"}
-        return any(l not in b12 for l in list(content_layers) + list(style_layers))
-
-    def _block3_eligible(self, content_layers, style_layers) -> bool:
-        if not self._block2_eligible(content_layers, style_layers) or self.arch != "vgg19":
-            return False
-        b3 = {"conv3_1", "conv3_2", "conv3_3", "conv3_4", "pool3"}
-        if set(content_layers) & b3 or set(style_layers) & (b3 - {"conv3_1"}):
-            return False
-        shallow = b3 | {"conv1_1", "conv1_2", "pool1", "conv2_1", "conv2_2", "pool2"}
-        return any(l not in shallow for l in list(content_layers) + list(style_layers))
-
-    def _block4_eligible(self, content_layers, style_layers) -> bool:
-        """conv4_2's activation is a front-pair output (content or style
-        both fine); conv4_1 exists only as its Gram."""
-        return (
-            self._block3_eligible(content_layers, style_layers)
-            and "conv4_1" not in content_layers
-        )
-
-    def _full_chain_dispatches(self, h: int, w: int, content_layers, style_layers) -> bool:
-        """True when :meth:`_chain_features` on an (h, w) image computes every
-        requested layer in kernels and never reaches the plain
-        ``extract_features`` (JAX ``_full_chain_dispatches``, ``api.py:208``).
-        It mirrors the chain's gates, and picks the auto-remat threshold:
-        the kernels store bf16 residuals and masks, the plain path more."""
-        all_layers = set(content_layers) | set(style_layers)
-        if not (self._block4_eligible(content_layers, style_layers) and h % 16 == 0
-                and w % 16 == 0):
-            return False  # evenness at the image, pool1, pool2 and pool3
-        if all_layers & {"conv4_3", "conv4_4", "pool4"}:
-            return False  # the block-4 tail would run plain
-        deeper = all_layers - {"conv1_1", "conv2_1", "conv3_1", "conv4_1", "conv4_2"}
-        return not deeper or (deeper == {"conv5_1"} and "conv5_1" not in content_layers)
-
     def _pixels(self, h: int, w: int) -> int:
         """Pixels of an (h, w) image's activations on the most loaded device
         (``api.py:605``: ``H * W // n_dev``; a repeated device holds all of
@@ -762,181 +585,56 @@ class StyleTransfer:
         mesh, bounds = self._scale_mesh(h)
         return h * w if mesh is None else M.pixels_per_device(bounds, w, mesh)
 
-    def _use_remat(self, cfg: StylizeConfig, h: int, w: int) -> bool:
+    def _plan(self, cfg: StylizeConfig, hw: Tuple[int, int], content_layers, style_layers):
+        """The network's plan of a forward of an image of extent ``hw``
+        computing ``content_layers`` and ``style_layers`` under ``cfg``
+        (``networks.py``)."""
+        return self.net.plan(*hw, content_layers, style_layers, fused=self._fused(cfg),
+                             fused_block1=cfg.fused_block1,
+                             config_layers=(cfg.content_layers, cfg.style_layers))
+
+    def _use_remat(self, cfg: StylizeConfig, plan, h: int, w: int) -> bool:
         """``cfg.remat``, or for ``None`` whether an (h, w) image reaches the
-        auto threshold of the route ``cfg`` takes (``api.py:602-619``), per
-        device under a mesh."""
+        auto threshold of ``plan`` (``api.py:602-619``): the network's
+        ``remat_auto_pixels`` for a full plan, :data:`REMAT_AUTO_PIXELS`
+        where the plain path carries some of the work; per device under a
+        mesh."""
         if cfg.remat is not None:
             return cfg.remat
-        if self.arch == resnet_mod.ARCH:
-            fused = self._fused(cfg)
-            return self._pixels(h, w) >= (REMAT_AUTO_PIXELS_RESNET if fused else REMAT_AUTO_PIXELS)
-        full = (self._chain(cfg)
-                and self._full_chain_dispatches(h, w, cfg.content_layers, cfg.style_layers))
-        return self._pixels(h, w) >= (REMAT_AUTO_PIXELS_FUSED if full else REMAT_AUTO_PIXELS)
+        return self._pixels(h, w) >= (self.net.remat_auto_pixels if plan.full
+                                      else REMAT_AUTO_PIXELS)
 
-    def _chain_features(self, image, content_layers, style_layers, remat: bool = False):
-        """The fused-chain VGG forward of ``api.py:644-918``: returns
-        ``(feats, grams)`` — activations for the requested layers the chain
-        does not carry, and the chain's Grams for requested style layers.
-        ``remat`` runs each kernel call under a checkpoint (``api.py:664``).
-        Under a mesh every segment runs its sharded form on the scale's
-        shards, the activations in ``feats`` are lists of shards and the
-        Grams lie on the home device."""
-        all_layers = tuple(dict.fromkeys(list(content_layers) + list(style_layers)))
-        style = set(style_layers)
-        if not (self._block1_structurally_eligible(content_layers, style_layers) and _even(image)):
-            return self._features(image, all_layers, remat), {}
-        ck = _checkpointed if remat else (lambda f: f)
-        x, mesh = self._input(image)
-        sharded = mesh is not None
-        route = [("block1", "pair")]
-        grams: Dict[str, torch.Tensor] = {}
-        b1 = B1.block1_packed if mesh is None else B1.make_sharded_block1(mesh)
-        pool1, g = ck(b1)(x, *self._weights("conv1_1", "conv1_2"))
-        if "conv1_1" in style:
-            grams["conv1_1"] = g
-        covered = {"conv1_1"}
-        start_block, handoff, start_conv = 2, pool1, 0
-        y42 = None
-        if self._block2_eligible(content_layers, style_layers) and _even(pool1):
-            b2, form = _segment(pool1, 64, 128, pool=True, gram=True, block2=True, mesh=mesh)
-            pool2, g = ck(b2)(pool1, *self._weights("conv2_1", "conv2_2"))
-            route.append(("block2", form))
-            if "conv2_1" in style:
-                grams["conv2_1"] = g
-            covered.add("conv2_1")
-            start_block, handoff = 3, pool2
-            if self._block3_eligible(content_layers, style_layers) and _even(pool2):
-                b3f, form_f = _segment(pool2, 128, 256, pool=False, gram=True, mesh=mesh)
-                b3t, form_t = _segment(pool2, 256, 256, pool=True, gram=False, mesh=mesh)
-                y32, g = ck(b3f)(pool2, *self._weights("conv3_1", "conv3_2"))
-                pool3 = ck(b3t)(y32, *self._weights("conv3_3", "conv3_4"))
-                route += [("block3_front", form_f), ("block3_tail", form_t)]
-                if "conv3_1" in style:
-                    grams["conv3_1"] = g
-                covered.add("conv3_1")
-                start_block, handoff = 4, pool3
-                b4_tail = {"conv4_3", "conv4_4", "pool4"}
-                if (
-                    self._block4_eligible(content_layers, style_layers)
-                    and not (b4_tail & set(all_layers))
-                    and _even(pool3)
-                ):
-                    b4f, form = _segment(pool3, 256, 512, pool=False, gram=True, mesh=mesh)
-                    y42, g = ck(b4f)(pool3, *self._weights("conv4_1", "conv4_2"))
-                    route.append(("block4_front", form))
-                    if "conv4_1" in style:
-                        grams["conv4_1"] = g
-                    covered.update(("conv4_1", "conv4_2"))
-                    start_block, handoff, start_conv = 4, y42, 2
-                    if any(l not in covered for l in all_layers):
-                        b4t, form = _segment(pool3, 512, 512, pool=True, gram=False, mesh=mesh)
-                        pool4 = ck(b4t)(y42, *self._weights("conv4_3", "conv4_4"))
-                        route.append(("block4_tail", form))
-                        covered.update(b4_tail)
-                        start_block, handoff, start_conv = 5, pool4, 0
-        deeper = tuple(l for l in all_layers if l not in covered)
-        if deeper == ("conv5_1",) and start_block == 5 and "conv5_1" not in content_layers:
-            impl = dispatch.gram_tail_impl(_hw(handoff)[1], 512)
-            if impl == "conv_gram":
-                tail = CG.conv_gram if mesh is None else CG.make_sharded_conv_gram(mesh)
-            else:
-                tail = CS.gram_tail if mesh is None else CS.make_sharded_gram_tail(mesh)
-            grams["conv5_1"] = ck(tail)(handoff, *self._weights("conv5_1"))
-            route.append(("conv5_1", impl))
-            deeper = ()
-        feats: Dict[str, torch.Tensor] = {}
-        if deeper:
-            extract = vgg_mod.extract_features_sharded if sharded else vgg_mod.extract_features
-            feats = extract(
-                self.params, handoff, deeper, pooling=self.pooling, arch=self.arch,
-                remat=remat, start_block=start_block, start_conv=start_conv,
-            )
-            route.append((f"block{start_block}+", "plain_sharded" if sharded else "plain"))
-        if y42 is not None and "conv4_2" in all_layers:
-            feats["conv4_2"] = y42
-        self.last_route = tuple(route)
+    def _forward(self, plan, image, remat: bool = False):
+        """``(feats, grams)`` of ``image`` by ``plan``, preprocessed by
+        :meth:`_input`: the requested activations the kernels do not fold
+        into a Gram (lists of shards on a mesh), and the kernels' Grams on
+        the home device. Sets :attr:`last_route`."""
+        feats, grams = self.net.run(plan, self._input(image), self.params, remat)
+        self.last_route = plan.route
         return feats, grams
-
-    def _fused_block1_features(self, image, content_layers, style_layers, remat: bool = False):
-        """The ``fused_block1`` VGG forward of ``api.py:923-958``:
-        ``block1_full`` from the preprocessed image, then the plain deeper
-        blocks from pool1. Returns ``(feats, grams)`` like
-        :meth:`_chain_features`; odd extents take the plain path."""
-        all_layers = tuple(dict.fromkeys(list(content_layers) + list(style_layers)))
-        if not _even(image):
-            return self._features(image, all_layers, remat), {}
-        ck = _checkpointed if remat else (lambda f: f)
-        x = imgio.preprocess(image, self._mean, self._std).to(self.compute_dtype)
-        pool1, g1 = ck(B1.block1_full)(x, *self._weights("conv1_1", "conv1_2"))
-        deeper = tuple(l for l in all_layers if l != "conv1_1")
-        feats: Dict[str, torch.Tensor] = {}
-        self.last_route = (("block1", "block1_full"),)
-        if deeper:
-            feats = vgg_mod.extract_features(
-                self.params, pool1, deeper, pooling=self.pooling, arch=self.arch,
-                remat=remat, start_block=2,
-            )
-            self.last_route += (("block2+", "plain"),)
-        return feats, ({"conv1_1": g1} if "conv1_1" in style_layers else {})
-
-    def _resnet_features(self, image, content_layers, style_layers, remat: bool = False):
-        """ResNet-50 on its kernels (``ops/kernels/resnet.py``): returns
-        ``(feats, grams)`` as :meth:`_chain_features` does, every requested
-        layer an activation in ``feats`` (its Gram is ``gram_fn``'s) and
-        ``grams`` empty. The stem and the max pool, then each stage up to
-        the deepest requested layer; ``remat`` runs each under a
-        checkpoint."""
-        all_layers = tuple(dict.fromkeys(list(content_layers) + list(style_layers)))
-        stop = resnet_mod.deepest_layer(all_layers)
-        ck = _checkpointed if remat else (lambda f: f)
-        x, _ = self._input(image)
-        p = self.params
-        pooled, act = ck(RK.stem_pool)(x, p["conv1"]["kernel"], p["conv1"]["bias"])
-        route = [("conv1", "im2col_gemm"), ("maxpool", "kernel")]
-        feats = {"conv1": act} if "conv1" in all_layers else {}
-        if stop != "conv1":
-            for s in range(1, len(resnet_mod.STAGES) + 1):
-                name = f"layer{s}"
-                pooled = ck(RK.stage)(pooled, p, s)
-                route.append((name, "bottlenecks"))
-                if name in all_layers:
-                    feats[name] = pooled
-                if name == stop:
-                    break
-        self.last_route = tuple(route)
-        return feats, {}
-
-    def _vgg(self, cfg: StylizeConfig, image, content_layers, style_layers, remat: bool = False):
-        """``(feats, grams)`` of ``image`` by the route ``cfg`` selects (for
-        ResNet-50: its kernels under ``use_fused``, else the plain path)."""
-        if self.arch == resnet_mod.ARCH:
-            if self._fused(cfg):
-                return self._resnet_features(image, content_layers, style_layers, remat)
-            layers = tuple(dict.fromkeys(list(content_layers) + list(style_layers)))
-            return self._features(image, layers, remat), {}
-        if self._block1_eligible(cfg):
-            return self._fused_block1_features(image, content_layers, style_layers, remat)
-        if self._chain(cfg):
-            return self._chain_features(image, content_layers, style_layers, remat)
-        layers = tuple(dict.fromkeys(list(content_layers) + list(style_layers)))
-        return self._features(image, layers, remat), {}
 
     def _build_objective(self, cfg: StylizeConfig):
         """``objective(image, c_targets, s_targets) -> (loss, terms)`` with
-        the dispatch decisions of ``cfg`` baked in."""
+        the dispatch decisions of ``cfg`` baked in: each image extent is
+        planned once, at its first evaluation."""
         c_weights = L.normalize_layer_weights(cfg.content_layers, cfg.content_layer_weights)
         s_weights = L.normalize_layer_weights(cfg.style_layers, cfg.style_layer_weights)
         self._fused(cfg)  # a chain or fused block 1 on the card needs bf16: raise here
         gram_fn = self._gram_fn(cfg)
         loss_fns = self._loss_fns(cfg)
 
+        # (h, w) -> (plan, remat): a scale's routes, decided at its first evaluation
+        plans: Dict[Tuple[int, int], tuple] = {}
+
         def objective(image, c_targets, s_targets):
-            if self.mesh is not None:  # the VGG and TV take the row shards
+            if self.mesh is not None:  # the network and TV take the row shards
                 image = self._shards(image)
-            remat = self._use_remat(cfg, *_hw(image))
-            feats, grams = self._vgg(cfg, image, cfg.content_layers, cfg.style_layers, remat)
+            hw = _hw(image)
+            if hw not in plans:
+                plan = self._plan(cfg, hw, cfg.content_layers, cfg.style_layers)
+                plans[hw] = plan, self._use_remat(cfg, plan, *hw)
+            plan, remat = plans[hw]
+            feats, grams = self._forward(plan, image, remat)
             terms = L.objective_terms(
                 feats,
                 gram_overrides=grams or None,
@@ -957,12 +655,12 @@ class StyleTransfer:
 
     @torch.no_grad()
     def _capture_content(self, cfg: StylizeConfig, image) -> Dict[str, torch.Tensor]:
-        feats, _ = self._vgg(cfg, image, cfg.content_layers, ())
+        feats, _ = self._forward(self._plan(cfg, _hw(image), cfg.content_layers, ()), image)
         return {l: feats[l] for l in cfg.content_layers}
 
     @torch.no_grad()
     def _capture_style(self, cfg: StylizeConfig, image) -> Dict[str, torch.Tensor]:
-        feats, grams = self._vgg(cfg, image, (), cfg.style_layers)
+        feats, grams = self._forward(self._plan(cfg, _hw(image), (), cfg.style_layers), image)
         gram_fn = self._gram_fn(cfg)
         return {l: grams[l] if l in grams else gram_fn(feats[l]) for l in cfg.style_layers}
 

@@ -35,7 +35,7 @@ operand's layout under Mosaic; here it only makes the input an
 activation); the gradient is taken with respect to ``x``. ``--height``
 overrides the image height (each block still halves both extents). A pooled
 block whose input has an odd extent is reported skipped (``ok``): the
-chain hands such a shape to the plain path (``api._even``), so no kernel
+chain hands such a shape to the plain path (``networks.VGG.plan``), so no kernel
 ever sees it. ``w2``-``w4`` run the W-sliced forms with two slices: the port
 has no slice-count rule (``conv_single.py``), and two slices exercise the
 stitching. The JAX harness's ``--force-gated`` and ``--param-input`` probe
@@ -162,7 +162,7 @@ def run_case(torch, block: str, size: int, height: int, repeats: int, device, ge
            "route": "cuda" if device.type == "cuda" else "plain"}
     if pool and (h % 2 or w % 2):
         rec.update(ok=True, skipped="odd extent under a pool: the chain hands this shape to "
-                                    "the plain path (api._even)")
+                                    "the plain path (networks.VGG.plan)")
         return rec
     bf16, f32 = torch.bfloat16, torch.float32
 

@@ -166,9 +166,8 @@ def test_odd_extents_fall_back_per_segment(packages, images, monkeypatch):
         vgg_mod, "extract_features",
         lambda *a, **kw: starts.append(kw.get("start_block", 1)) or real_extract(*a, **kw),
     )
-    feats, grams = pst._chain_features(
-        torch.from_numpy(content[:36, :20])[None], ("conv4_2",), vgg_mod.DEFAULT_STYLE_LAYERS
-    )
+    plan = pst._plan(StylizeConfig(), (36, 20), ("conv4_2",), vgg_mod.DEFAULT_STYLE_LAYERS)
+    feats, grams = pst._forward(plan, torch.from_numpy(content[:36, :20])[None])
     assert starts == [3]
     assert set(grams) == {"conv1_1", "conv2_1"}
     assert set(feats) == {"conv3_1", "conv4_1", "conv4_2", "conv5_1"}

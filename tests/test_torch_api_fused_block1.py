@@ -123,18 +123,30 @@ def test_fused_block1_gates(packages):
     """The flag needs use_fused and the structural gate; set, it switches the
     chain off whether or not block1_full engages; odd extents run plain."""
     _, pst = packages
-    assert pst._block1_eligible(StylizeConfig(fused_block1=True))
-    assert not pst._block1_eligible(StylizeConfig())
-    assert not pst._block1_eligible(StylizeConfig(fused_block1=True, use_fused=False))
-    assert not pst._block1_eligible(StylizeConfig(fused_block1=True, content_layers=("conv1_2",)))
-    assert not pst._chain(StylizeConfig(fused_block1=True, content_layers=("conv1_2",)))
-    assert pst._chain(StylizeConfig()) and not pst._chain(StylizeConfig(use_fused=False))
+
+    def route(st, hw=(32, 32), **kw):
+        cfg = StylizeConfig(**kw)
+        return st._plan(cfg, hw, cfg.content_layers, cfg.style_layers).route
+
+    full, plain = ("block1", "block1_full"), (("vgg", "plain"),)
+    assert route(pst, fused_block1=True)[0] == full
+    assert route(pst)[0] == ("block1", "pair")
+    assert route(pst, fused_block1=True, use_fused=False) == plain
+    assert route(pst, fused_block1=True, content_layers=("conv1_2",)) == plain
+    assert route(pst, use_fused=False) == plain
     mx = StyleTransfer(pst.params, mean=pst.mean, std=pst.std, pooling="max", device="cpu")
-    assert not mx._block1_eligible(StylizeConfig(fused_block1=True))
-    feats, grams = pst._fused_block1_features(torch.rand(1, 18, 17, 3), ("conv2_2",), ("conv1_1",))
-    assert grams == {} and set(feats) == {"conv2_2", "conv1_1"}
-    feats, grams = pst._fused_block1_features(torch.rand(1, 18, 16, 3), (), ("conv1_1",))
-    assert feats == {} and set(grams) == {"conv1_1"}
+    assert route(mx, fused_block1=True) == plain
+    cfg = StylizeConfig(fused_block1=True, content_layers=("conv2_2",), style_layers=("conv1_1",))
+    plan = pst._plan(cfg, (18, 17), ("conv2_2",), ("conv1_1",))
+    feats, grams = pst._forward(plan, torch.rand(1, 18, 17, 3))
+    assert plan.route == plain and grams == {} and set(feats) == {"conv2_2", "conv1_1"}
+    plan = pst._plan(cfg, (18, 16), (), ("conv1_1",))  # the style capture's plan
+    feats, grams = pst._forward(plan, torch.rand(1, 18, 16, 3))
+    assert plan.route == (full,) and feats == {} and set(grams) == {"conv1_1"}
+
+
+def _weights(st, *names):
+    return [t for n in names for t in (st.params[n]["kernel"], st.params[n]["bias"])]
 
 
 @pytest.mark.parametrize("block1", ["full", "tail"])
@@ -176,10 +188,10 @@ def test_objective_with_all_four_hooks_matches_jax(packages, images, block1):
     def t_feats(im):
         x = imgio.preprocess(im, pst.mean, pst.std)
         if block1 == "full":
-            pool1, g1 = B1.block1_full(x, *pst._weights("conv1_1", "conv1_2"))
+            pool1, g1 = B1.block1_full(x, *_weights(pst, "conv1_1", "conv1_2"))
         else:
             r1 = vgg_mod.extract_features(pst.params, x, ("conv1_1",))["conv1_1"]
-            pool1, g1 = B1.block1_tail(r1, *pst._weights("conv1_2"))
+            pool1, g1 = B1.block1_tail(r1, *_weights(pst, "conv1_2"))
         return vgg_mod.extract_features(pst.params, pool1, deeper, start_block=2), g1
 
     def t_objective(im, c_t, s_t):

@@ -146,6 +146,7 @@ def test_real_limit_keeps_pairs_at_this_size(packages, images, monkeypatch):
         monkeypatch.setattr(module, name,
                             lambda *a, _n=name, _r=real: calls.append(_n) or _r(*a))
     with torch.no_grad():
-        pst._chain_features(torch.from_numpy(content)[None], ("conv4_2",),
-                            vgg_mod.DEFAULT_STYLE_LAYERS)
+        plan = pst._plan(StylizeConfig(), content.shape[:2], ("conv4_2",),
+                         vgg_mod.DEFAULT_STYLE_LAYERS)
+        pst._forward(plan, torch.from_numpy(content)[None])
     assert sorted(set(calls)) == ["conv_gram", "pair_gram"]

@@ -15,7 +15,7 @@ import torch
 
 from style_transfer_tpu import schedule as JS
 from style_transfer_tpu.ops.pallas import vmem as VM
-from style_transfer_tpu_torch import StyleTransfer
+from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
 from style_transfer_tpu_torch.ops.kernels import block1 as B1
 from style_transfer_tpu_torch.ops.kernels import dispatch
 
@@ -85,6 +85,7 @@ def test_block1_stays_on_its_kernel_beyond_the_reference_envelope(monkeypatch):
     st = StyleTransfer(device="cpu")
     for w in widths:
         with torch.no_grad():
-            _, grams = st._chain_features(torch.rand(1, 2, w, 3), (), ("conv1_1", "conv2_1"))
+            plan = st._plan(StylizeConfig(), (2, w), (), ("conv1_1", "conv2_1"))
+            _, grams = st._forward(plan, torch.rand(1, 2, w, 3))
         assert calls[-1] == (1, 2, w, 3) and "conv1_1" in grams
     assert len(calls) == len(widths)

@@ -2,8 +2,9 @@
 ``models.vgg.extract_features(remat=True)`` against ``remat=False`` and
 against the JAX package's ``jax.checkpoint`` form, ``StylizeConfig.remat``
 through ``stylize()``, a spy that each kernel wrapper of the chain runs its
-forward twice a step under remat, the full-chain mirror that picks the auto
-threshold against the real dispatch, and the auto choice itself.
+forward twice a step under remat, the plans that pick the kernels' auto
+threshold (full: no plain step) against the real dispatch, and the auto
+choice itself.
 
 On the CPU the kernel wrappers run their plain versions and count no launch
 (``tests/test_torch_isolation.py``), so the spies wrap the wrappers.
@@ -19,7 +20,7 @@ import torch
 
 from style_transfer_tpu.models import vgg as jvgg
 from style_transfer_tpu_torch import StyleTransfer, StylizeConfig
-from style_transfer_tpu_torch import api
+from style_transfer_tpu_torch import api, networks
 from style_transfer_tpu_torch.models import vgg
 from style_transfer_tpu_torch.models.weights import from_numpy_params, random_fixture
 from style_transfer_tpu_torch.ops.kernels import block1 as B1
@@ -165,15 +166,19 @@ def test_each_chain_kernel_forward_runs_twice_a_step_under_remat(st, monkeypatch
         assert calls == {k: 2 * factor * n for k, n in expected.items()}, remat
 
 
-def _plain_reached(st, monkeypatch, h, w, content_layers, style_layers):
-    """Whether the real chain dispatch on an (h, w) image reaches the plain
+def _plan(st, h, w, content_layers, style_layers, cfg=None):
+    return st._plan(cfg or StylizeConfig(), (h, w), content_layers, style_layers)
+
+
+def _plain_reached(st, monkeypatch, plan, h, w):
+    """Whether running ``plan`` on an (h, w) image reaches the plain
     ``extract_features``."""
     reached = []
     real = vgg.extract_features
     monkeypatch.setattr(vgg, "extract_features",
                         lambda *a, **kw: reached.append(1) or real(*a, **kw))
     with torch.no_grad():
-        st._chain_features(torch.rand(1, h, w, 3), content_layers, style_layers)
+        st._forward(plan, torch.rand(1, h, w, 3))
     monkeypatch.setattr(vgg, "extract_features", real)
     return bool(reached)
 
@@ -193,28 +198,29 @@ LAYER_SETS = [
 
 @pytest.mark.parametrize("content_layers, style_layers", LAYER_SETS)
 def test_full_chain_mirror_matches_real_dispatch(st, monkeypatch, content_layers, style_layers):
-    """``_full_chain_dispatches`` (the auto-remat mirror of the chain's gates)
-    says True exactly where ``_chain_features`` never reaches the plain
-    ``extract_features``: at every shape whose pool boundaries are even or
-    odd, for layer sets on and off the chain."""
+    """A plan is full (it takes the kernels' auto-remat threshold) exactly
+    where its route has no plain step and running it never reaches the
+    plain ``extract_features``: at every shape whose pool boundaries are
+    even or odd, for layer sets on and off the chain."""
     for h, w in ((32, 32), (16, 48), (48, 16), (24, 32), (32, 40), (40, 40), (34, 32),
                  (32, 36), (8, 16)):
-        mirror = st._full_chain_dispatches(h, w, content_layers, style_layers)
-        assert mirror == (not _plain_reached(st, monkeypatch, h, w, content_layers,
-                                             style_layers)), (h, w)
+        plan = _plan(st, h, w, content_layers, style_layers)
+        assert plan.full == all(form not in ("plain", "plain_sharded")
+                                for _, form in plan.route), (h, w)
+        assert plan.full == (not _plain_reached(st, monkeypatch, plan, h, w)), (h, w)
 
 
 def test_full_chain_mirror_other_models_and_real_sizes():
     params, mean, std = random_fixture(0)
     st_max = StyleTransfer(params, mean=mean, std=std, pooling="max", device="cpu")
-    assert not st_max._full_chain_dispatches(32, 32, *DEFAULT_LAYERS)
+    assert not _plan(st_max, 32, 32, *DEFAULT_LAYERS).full
     st16 = StyleTransfer(random_fixture(0, arch="vgg16")[0], device="cpu")
-    assert not st16._full_chain_dispatches(32, 32, *DEFAULT_LAYERS)
+    assert not _plan(st16, 32, 32, *DEFAULT_LAYERS).full
     st19 = StyleTransfer(params, mean=mean, std=std, device="cpu")
     # the sizes of the shipped configurations: 16 divides both sides or not
-    assert st19._full_chain_dispatches(4096, 4096, *DEFAULT_LAYERS)
-    assert st19._full_chain_dispatches(2160, 3840, *DEFAULT_LAYERS)
-    assert not st19._full_chain_dispatches(1080, 1920, *DEFAULT_LAYERS)
+    assert _plan(st19, 4096, 4096, *DEFAULT_LAYERS).full
+    assert _plan(st19, 2160, 3840, *DEFAULT_LAYERS).full
+    assert not _plan(st19, 1080, 1920, *DEFAULT_LAYERS).full
 
 
 def test_auto_remat_follows_the_threshold_of_the_route(st, monkeypatch):
@@ -222,13 +228,17 @@ def test_auto_remat_follows_the_threshold_of_the_route(st, monkeypatch):
     chain's at a shape it carries whole, the plain path's elsewhere; an
     explicit True or False wins."""
     monkeypatch.setattr(api, "REMAT_AUTO_PIXELS", 24 * 24)
-    monkeypatch.setattr(api, "REMAT_AUTO_PIXELS_FUSED", 48 * 48)
+    monkeypatch.setattr(networks.VGG, "remat_auto_pixels", 48 * 48)
     chain, plain = StylizeConfig(), StylizeConfig(use_fused=False)
-    assert not st._use_remat(chain, 32, 32) and st._use_remat(chain, 48, 48)
-    assert st._use_remat(chain, 34, 34)          # odd pool boundaries: plain's threshold
-    assert st._use_remat(plain, 32, 32) and not st._use_remat(plain, 16, 32)
-    assert not st._use_remat(dataclasses.replace(chain, remat=False), 64, 64)
-    assert st._use_remat(dataclasses.replace(chain, remat=True), 16, 16)
+
+    def use_remat(cfg, h, w):
+        return st._use_remat(cfg, _plan(st, h, w, cfg.content_layers, cfg.style_layers, cfg), h, w)
+
+    assert not use_remat(chain, 32, 32) and use_remat(chain, 48, 48)
+    assert use_remat(chain, 34, 34)          # odd pool boundaries: plain's threshold
+    assert use_remat(plain, 32, 32) and not use_remat(plain, 16, 32)
+    assert not use_remat(dataclasses.replace(chain, remat=False), 64, 64)
+    assert use_remat(dataclasses.replace(chain, remat=True), 16, 16)
 
     calls = _spy_wrappers(monkeypatch)
     r = np.random.RandomState(4)

@@ -182,13 +182,19 @@ def test_resnet_errors():
 
 
 def test_remat_threshold_comes_from_resnets_own_bytes():
-    import style_transfer_tpu_torch.api as api
+    from style_transfer_tpu_torch import networks
 
     st = StyleTransfer(R.init_params(0), device="cpu")
-    cfg = StylizeConfig()
-    assert api.REMAT_AUTO_PIXELS_RESNET == int(57220 * 2 ** 20 / R.peak_bytes_per_pixel())
-    assert not st._use_remat(cfg, 2048, 2048) and not st._use_remat(cfg, 8192, 8192)
-    assert st._use_remat(cfg, 12288, 12288)
+    cfg = StylizeConfig(content_layers=("layer2",), style_layers=("conv1", "layer4"))
+
+    def use_remat(side):
+        plan = st._plan(cfg, (side, side), cfg.content_layers, cfg.style_layers)
+        assert plan.full  # the kernels carry every layer: ResNet's own threshold
+        return st._use_remat(cfg, plan, side, side)
+
+    assert networks.REMAT_AUTO_PIXELS_RESNET == int(57220 * 2 ** 20 / R.peak_bytes_per_pixel())
+    assert not use_remat(2048) and not use_remat(8192)
+    assert use_remat(12288)
     assert R.peak_bytes_per_pixel() == 463.0
 
 

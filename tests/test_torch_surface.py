@@ -115,6 +115,7 @@ def test_resize_refuses_an_unknown_method():
 # A JAX module whose port counterpart is not the same path under
 # style_transfer_tpu_torch/ (with ops/pallas -> ops/kernels): its counterparts.
 COUNTERPARTS = {
+    "api.py": ["api.py", "networks.py"],
     "ops/pallas/block1_packed.py": ["ops/kernels/block1.py"],
     "ops/pallas/vmem.py": ["ops/kernels/dispatch.py", "ops/kernels/conv_single.py"],
     "models/block1_s2d.py": [],
