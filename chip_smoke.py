@@ -396,8 +396,12 @@ def _conv_flops(h, w, *chain) -> float:
 
 
 def _gram_flops(m, c) -> float:
-    """F^T F forward plus F S backward."""
-    return 2 * 2.0 * m * c * c
+    """F^T F forward (the tiles on and above the diagonal that
+    ``csrc/gram.cu`` computes, M C (C + tile)) plus F S backward (2 M C^2)."""
+    from style_transfer_tpu_torch.ops.kernels import _launch
+
+    tile = _launch.GRAM_CONFIGS[_launch.gram_config(m, c)][0]
+    return float(m) * c * (c + tile) + 2.0 * m * c * c
 
 
 def _cuobjdump():
@@ -415,7 +419,7 @@ def _cuobjdump():
 
 # kernels of csrc/conv3x3.cu, csrc/gram.cu and csrc/block1.cu whose products
 # must run on the tensor cores (the Grams' reduce passes only add partials)
-TENSOR_CORE_KERNELS = ("conv3x3_kernel", "conv3x3_wgmma_kernel", "gram_partial_kernel",
+TENSOR_CORE_KERNELS = ("conv3x3_kernel", "conv3x3_wgmma_kernel", "gram_kernel",
                        "gram_fs_kernel", "block1_fwd_kernel", "block1_bwd_kernel")
 
 
@@ -446,14 +450,14 @@ def tensor_core_report(lib_path):
                 cur.append(op.group(1))
     report = {}
     for name, ops in funcs.items():
-        kernel = next((k for k in TENSOR_CORE_KERNELS + ("gram_reduce_kernel",)
+        kernel = next((k for k in TENSOR_CORE_KERNELS + ("gram_reduce_",)
                        if k in name and ("block1" in k) == ("block1" in name)), None)
         if kernel is None:
             continue
         mma = [i for i, op in enumerate(ops) if op.startswith("HMMA") or "GMMA" in op]
         local = sum(op.startswith(("LDL", "STL")) for op in ops[mma[0]:mma[-1]]) if mma else 0
-        agg = report.setdefault(kernel, {"instantiations": 0, "mma": 0, "least_mma": None,
-                                         "local_between_mma": 0})
+        agg = report.setdefault(kernel.rstrip("_"), {"instantiations": 0, "mma": 0,
+                                                     "least_mma": None, "local_between_mma": 0})
         agg["instantiations"] += 1
         agg["mma"] += len(mma)
         agg["least_mma"] = len(mma) if agg["least_mma"] is None else min(agg["least_mma"], len(mma))
@@ -824,6 +828,87 @@ RESNET_EDGES = [
 ]
 
 
+#: The Grams of one 2048^2 step of each network: (network, layer, rows M,
+#: channels C, the F S output: VGG's chain adds it in fp32, conv5_1's
+#: conv_gram gates it by the ReLU, ResNet's GramFunction rounds it to bf16).
+GRAM_STEP_SHAPES = (
+    ("vgg19", "conv1_1", 2048 * 2048, 64, "fp32"), ("vgg19", "conv2_1", 1024 * 1024, 128, "fp32"),
+    ("vgg19", "conv3_1", 512 * 512, 256, "fp32"), ("vgg19", "conv4_1", 256 * 256, 512, "fp32"),
+    ("vgg19", "conv5_1", 128 * 128, 512, "gated"),
+    ("resnet50", "conv1", 1024 * 1024, 64, "bf16"), ("resnet50", "layer1", 512 * 512, 256, "bf16"),
+    ("resnet50", "layer2", 256 * 256, 512, "bf16"), ("resnet50", "layer3", 128 * 128, 1024, "bf16"),
+    ("resnet50", "layer4", 64 * 64, 2048, "bf16"),
+)
+
+
+def gram_step_rates(torch):
+    """Each Gram of :data:`GRAM_STEP_SHAPES` timed alone (profiler): ``F^T
+    F`` (``_launch.gram``: the product and its reduce pass) and ``F S``
+    (``_launch.gram_fs``, with the shape's output), each with its least
+    time (the larger of its operations at the bf16 peak and F read once
+    plus the output written once at the memory's rate; F^T F's operations
+    are those of the tiles on and above the diagonal it computes, M C (C +
+    tile), F S's 2 M C^2) and its share of it; the configuration each took
+    (``gram_config``, ``gram_fs_width``); the plain fp32 contraction's time
+    (forward and backward) and ``f.T @ f`` + ``f @ S``'s (CUDA events);
+    each product's error against fp32 (F^T F within ``TOL_GRAM``; F S
+    against ``F S`` in fp32, gated by F > 0 where the output is, within
+    ``TOL_GRAM`` for the fp32 output and ``TOL_ACT`` for the bf16 ones) and
+    whether two launches of each give the same bits."""
+    from style_transfer_tpu_torch.ops import losses
+    from style_transfer_tpu_torch.ops.kernels import _launch
+    from style_transfer_tpu_torch.ops.kernels._build import LaunchCount
+    from style_transfer_tpu_torch.ops.kernels.tolerances import TOL_ACT, TOL_GRAM
+
+    dev, scratch, grams = torch.device("cuda"), LaunchCount(), []
+    for net, layer, m, c, out in GRAM_STEP_SHAPES:
+        f = torch.randn(m, c, device=dev).relu().to(torch.bfloat16)
+        sf = torch.randn(c, c, device=dev) * 1e-3
+        s = sf.to(torch.bfloat16)
+        fwd = lambda f=f: _launch.gram(f, count=scratch)  # noqa: E731
+        bwd = lambda f=f, s=s: _launch.gram_fs(  # noqa: E731
+            f, s, count=scratch, relu_gate=out == "gated", out_bf16=out != "fp32")
+
+        def plain(f=f, sf=sf):
+            x = f.detach().float().requires_grad_(True)
+            losses.gram_matrix(x[None, None]).backward(sf)
+
+        g1, g2, d1, d2 = fwd(), fwd(), bwd(), bwd()
+        err = _rel(g1, f.float().T @ f.float())
+        fs = f.float() @ s.float()
+        fs_err = _rel(d1.float(), torch.where(f > 0, fs, 0.0) if out == "gated" else fs)
+        fs_tol = TOL_GRAM if out == "fp32" else TOL_ACT
+        del fs
+        if err > TOL_GRAM or fs_err > fs_tol:
+            raise AssertionError(f"the Gram of {m} x {c}: relative error {err} (F^T F), "
+                                 f"{fs_err} (F S, {out} out)")
+        fwd_ms, bwd_ms = _device_ms(torch, fwd), _device_ms(torch, bwd)
+        cfg = _launch.gram_config(m, c)
+        tile = _launch.GRAM_CONFIGS[cfg][0]
+        fwd_bound, fwd_by = _bound(2 * m * c + 4 * c * c, float(m) * c * (c + tile), "bf16")
+        out_bytes = 4 if out == "fp32" else 2
+        bwd_bound, bwd_by = _bound(2 * m * c + out_bytes * m * c + 2 * c * c, 2.0 * m * c * c,
+                                   "bf16")
+        grams.append({
+            "network": net, "layer": layer, "shape": [m, c], "fs_out": out,
+            "cfg": [cfg, _launch.gram_fs_width(m, c)],
+            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "ms": fwd_ms + bwd_ms,
+            "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by, "bwd_bound_ms": bwd_bound,
+            "bwd_bound_by": bwd_by, "bound_ms": fwd_bound + bwd_bound,
+            "fwd_pct": 100.0 * fwd_bound / fwd_ms, "bwd_pct": 100.0 * bwd_bound / bwd_ms,
+            "pct": 100.0 * (fwd_bound + bwd_bound) / (fwd_ms + bwd_ms),
+            "plain_ms": _device_ms(torch, plain, reps=2),
+            "library_ms": statistics.median(_wall_ms(
+                torch, lambda f=f, s=s: (f.T @ f, f @ s), reps=5)),
+            "fwd_rel_err": err, "bwd_rel_err": fs_err,
+            "run_to_run_equal": bool(torch.equal(g1, g2) and torch.equal(d1, d2))})
+        del f, sf, s, g1, g2, d1, d2
+        torch.cuda.empty_cache()
+    if not all(g["run_to_run_equal"] for g in grams):
+        raise AssertionError(f"a Gram launch repeated with other bits: {grams}")
+    return grams
+
+
 def resnet_rates(torch):
     """ResNet-50's kernels (``csrc/conv1x1.cu``, ``csrc/im2col.cu``) at the
     launches of one objective evaluation of the 2048^2 cell
@@ -839,15 +924,12 @@ def resnet_rates(torch):
     ``TOL_ACT``; the copies exact) and its share of its roofline (a share
     above 100% is listed, not refused: an operand that L2 holds is read
     faster than from memory); the edge cases of :data:`RESNET_EDGES`; and
-    the Gram kernel at ResNet's 1024 and 2048 channels (128^2 and 64^2)
-    against the plain fp32 contraction and ``f.T @ f`` + ``f @ S``."""
+    the Grams of both networks' 2048^2 steps (:func:`gram_step_rates`)."""
     import re
 
     from style_transfer_tpu_torch import StyleTransfer, StylizeConfig, trace
     from style_transfer_tpu_torch.models import resnet as R
-    from style_transfer_tpu_torch.ops import losses
-    from style_transfer_tpu_torch.ops.kernels import gram as KG
-    from style_transfer_tpu_torch.ops.kernels.tolerances import TOL_ACT, TOL_GRAM
+    from style_transfer_tpu_torch.ops.kernels.tolerances import TOL_ACT
 
     dev = torch.device("cuda")
     card = _nvidia_smi()
@@ -912,32 +994,7 @@ def resnet_rates(torch):
         got, want = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
         edges.append({"kernel": kernel, "shape": list(shape), "rel": _rel(got, want)})
     bad = [e for e in edges if e["rel"] > TOL_ACT]
-    grams = []
-    for hw, c in (((128, 128), 1024), ((64, 64), 2048)):
-        f = torch.randn(1, *hw, c, device=dev).relu().to(torch.bfloat16)
-        s = (torch.randn(c, c, device=dev) * 1e-3)
-        sb = s.to(torch.bfloat16)
-        f2 = f.view(-1, c)
-
-        def kern(f=f, s=s):
-            x = f.detach().requires_grad_(True)
-            KG.pallas_gram(x).backward(s)
-
-        def plain(f=f, s=s):
-            x = f.detach().float().requires_grad_(True)
-            losses.gram_matrix(x).backward(s)
-
-        m = hw[0] * hw[1]
-        nbytes = 2 * m * c * 2 + 4 * c * c + 2 * c * c + 2 * m * c
-        bound, by = _bound(nbytes, _gram_flops(m, c), "bf16")
-        err = _rel(KG.pallas_gram(f), losses.gram_matrix(f.float()))
-        grams.append({"shape": [*hw, c], "ms": _device_ms(torch, kern),
-                      "plain_ms": _device_ms(torch, plain),
-                      "library_ms": statistics.median(_wall_ms(
-                          torch, lambda f2=f2, sb=sb: (f2.T @ f2, f2 @ sb), reps=5)),
-                      "bound_ms": bound, "bound_by": by, "rel_err": err})
-        if err > TOL_GRAM:
-            raise AssertionError(f"the Gram at {hw} x {c}: relative error {err}")
+    grams = gram_step_rates(torch)
     emit({"phase": "kernel", "kernel": "resnet_rates", "scale": 2048, "card": card,
           "step_device_ms": step_ms, "step_by_name": by_name, "kernels": rows,
           "launches": per_launch, "above_roofline": above, "edges": edges, "grams": grams})
@@ -1723,7 +1780,7 @@ def step_profile(torch, params, mean, std):
             if m.group(1) == "true":
                 return "conv_fwd"
             return "conv_bwd_copied_input" if m.group(2) == "0" else "conv_bwd_staged_input"
-        for key in ("gram_partial_kernel", "gram_reduce_kernel", "gram_fs_kernel", "tv_",
+        for key in ("gram_kernel", "gram_reduce_", "gram_fs_kernel", "tv_",
                     "sse_kernel", "scale_cast_kernel"):
             if key in name:
                 return key.rstrip("_")
@@ -2380,7 +2437,7 @@ def cli_profile(torch, io):
         if kernels:
             break
     named = {k: any(k in n for n in kernels)
-             for k in ("conv3x3_kernel", "gram_partial_kernel", "gram_fs_kernel", "tv_kernel")}
+             for k in ("conv3x3_kernel", "gram_kernel", "gram_fs_kernel", "tv_kernel")}
     emit({"phase": "cli", "part": "profile", "traces": traces, "attempts": attempt + 1,
           "kernel_names": len(kernels), "names_chain_kernels": named})
     if len(traces) != 1 or not all(named.values()):

@@ -24,6 +24,7 @@
 // (all three forms) and TV at that size against their plain versions.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -307,13 +308,15 @@ __device__ __forceinline__ void wgmma_hold(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 128 fp32) = A (64 x 16 bf16, K-major) * B (16 x 128 bf16,
+// d (64 x 128 fp32) = A (64 x 16 bf16, K-major; with TRANS_A, M-major:
+// the transposed layout, as an N-major B lies) * B (16 x 128 bf16,
 // N-major) + (accumulate ? d : 0), both operands by descriptor. Accumulator
 // layout (warp q of the warpgroup, g = lane / 4, t = lane % 4): d[4j + 0, 1]
 // = row 16q + g, columns 8j + 2t, +1; d[4j + 2, 3] = row 16q + g + 8, the
 // same columns. The first product of a sum starts it (accumulate false):
 // zeroing d with other instructions instead makes ptxas serialize the
 // wgmmas that follow.
+template <int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_bf16_tb(float (&d)[64], uint64_t da,
                                                          uint64_t db, bool accumulate) {
   asm volatile(
@@ -329,7 +332,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_tb(float (&d)[64], uint64_
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 1;\n"
+      " %64, %65, p, 1, 1, %67, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -347,11 +350,12 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_tb(float (&d)[64], uint64_
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)));
+      : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)), "n"(TRANS_A));
 }
 
 // The same product 64 columns wide: d (64 x 64 fp32) = A (64 x 16) * B (16
 // x 64) + (accumulate ? d : 0), d[4j ...] as above for j < 8.
+template <int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_bf16_tb(float (&d)[32], uint64_t da, uint64_t db,
                                                         bool accumulate) {
   asm volatile(
@@ -363,7 +367,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_tb(float (&d)[32], uint64_t
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 1;\n"
+      " %32, %33, p, 1, 1, %35, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -373,7 +377,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_tb(float (&d)[32], uint64_t
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)));
+      : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)), "n"(TRANS_A));
 }
 
 // Eight fp32 values rounded to bf16 as one 16-byte value.
@@ -443,6 +447,41 @@ __device__ __forceinline__ void finish_mean(float local, float* partial, unsigne
   for (unsigned int i = threadIdx.x; i < nblocks; i += NT) t += __ldcg(partial + i);
   t = block_sum<NT>(t, red);
   if (threadIdx.x == 0) out[0] = __fdiv_rn(t, numel);
+}
+
+// ---- host side: tensor maps and the card's SM count ----
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link against
+// libcuda); null where it is missing.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// Streaming multiprocessors of device dev (0 where it cannot be read).
+inline int sm_count(int dev) {
+  static int sms[MAX_DEVICES] = {};
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    sms[dev] = 0;
+  }
+  return sms[dev];
 }
 
 }  // namespace st

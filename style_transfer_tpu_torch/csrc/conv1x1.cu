@@ -83,8 +83,6 @@
 //   steps each; bias and add in fp32, then ReLU, then the gate; one bf16
 //   rounding. No split of K and no atomics: every output has one owner that
 //   sums in a fixed order, so results are bit-identical run to run.
-#include <cuda.h>
-
 #include "common.cuh"
 
 namespace {
@@ -434,29 +432,10 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
 // An (H, W, C) bf16 tensor as (C, W, H) in boxes of 64 channels x bw x bh
 // elements taken every s pixels, in the 128-byte swizzle.
-bool map_hwc(EncodeTiled encode, CUtensorMap* map, const void* ptr, int h, int w, int c, int bw,
-             int bh, int s) {
+bool map_hwc(st::EncodeTiled encode, CUtensorMap* map, const void* ptr, int h, int w, int c,
+             int bw, int bh, int s) {
   const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h};
   const cuuint64_t strides[2] = {(cuuint64_t)c * 2, (cuuint64_t)w * c * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)bw, (cuuint32_t)bh};
@@ -468,7 +447,7 @@ bool map_hwc(EncodeTiled encode, CUtensorMap* map, const void* ptr, int h, int w
 }
 
 // The weights (K, N) as (N, K) in boxes of 64 x 64, in the 128-byte swizzle.
-bool map_weights(EncodeTiled encode, CUtensorMap* map, const void* ptr, int k, int n) {
+bool map_weights(st::EncodeTiled encode, CUtensorMap* map, const void* ptr, int k, int n) {
   const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)k};
   const cuuint64_t strides[1] = {(cuuint64_t)n * 2};
   const cuuint32_t box[2] = {64, KC};
@@ -512,25 +491,16 @@ bool layout(GemmArgs* a) {
   return a->slots >= 2;
 }
 
-constexpr int MAX_DEVICES = 64;
-
-int sm_count(int dev) {
-  static int sms[MAX_DEVICES] = {};
-  if (sms[dev] == 0 &&
-      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-    sms[dev] = 0;
-  }
-  return sms[dev];
-}
-
 template <int BN, int EX>
 int launch(GemmArgs a, const void* x, const void* w, const void* add, const void* gate, void* y,
            int H, int W, int K, int Ho, int Wo, cudaStream_t stream) {
-  static bool configured[MAX_DEVICES] = {};
+  static bool configured[st::MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= MAX_DEVICES || sm_count(dev) == 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (dev >= st::MAX_DEVICES || st::sm_count(dev) == 0) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
   if (!configured[dev]) {
     err = cudaFuncSetAttribute(conv1x1_kernel<BN, EX>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
@@ -542,7 +512,7 @@ int launch(GemmArgs a, const void* x, const void* w, const void* add, const void
   a.tiles = ((Ho + TH - 1) / TH) * a.tiles_w * a.tiles_n;
   a.nchunks = (K + KC - 1) / KC;
   if (!layout<BN>(&a)) return static_cast<int>(cudaErrorInvalidValue);
-  const EncodeTiled encode = encode_tiled();
+  const st::EncodeTiled encode = st::encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_x = {}, map_w = {}, map_y = {}, map_add = {}, map_gate = {};
   const int s = a.stride;
@@ -556,7 +526,7 @@ int launch(GemmArgs a, const void* x, const void* w, const void* add, const void
   }
   if (ok && a.gate) ok = map_hwc(encode, &map_gate, gate, Ho, Wo, a.N, TW, TH, 1);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = a.tiles < sm_count(dev) ? a.tiles : sm_count(dev);
+  const int grid = a.tiles < st::sm_count(dev) ? a.tiles : st::sm_count(dev);
   a.own_row = (a.N & 63) != 0 && a.tiles / a.tiles_n >= grid;
   conv1x1_kernel<BN, EX><<<grid, NT, SMEM, stream>>>(a, map_x, map_w, map_y, map_add, map_gate);
   return static_cast<int>(cudaGetLastError());

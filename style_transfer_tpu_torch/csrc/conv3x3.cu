@@ -133,8 +133,6 @@
 // (conv_single.py) gates before the taps, from its own stored activation y:
 // prologue = the optionally unpooled cotangent (absent: zero), plus an fp32
 // term (the Gram term y.S), zeroed where y <= 0, rounded once to bf16.
-#include <cuda.h>
-
 #include "common.cuh"
 
 namespace {
@@ -810,33 +808,12 @@ __global__ void __launch_bounds__(T::NT, 1)
   epilogue<T, FWD>(a, cs, h0, w0, n0, tid);
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime (no link against
-// libcuda); null where it is missing.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
 // The warpgroup tile's TMA maps: the input as (8 channels, K / 8, W, H) in
 // boxes of one 8-channel plane of the haloed tile, and the taps (3, 3, K, N)
 // as (N, K, 9) in boxes of 64 channels x KC rows x 9 taps, 128-byte swizzle.
 template <class T, int MODE>
 bool tensor_maps(const ConvArgs& a, CUtensorMap* map_x, CUtensorMap* map_w) {
-  const EncodeTiled encode = encode_tiled();
+  const st::EncodeTiled encode = st::encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   if (MODE == COPIED) {

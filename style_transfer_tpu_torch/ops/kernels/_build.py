@@ -45,8 +45,9 @@ _SIGNATURES = {
     "st_conv3x3_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "st_conv3x3_bwd_data": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "st_conv3x3_tile_info": [_I, ctypes.POINTER(ctypes.c_int)],
-    "st_gram": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "st_gram_fs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "st_gram": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "st_gram_fs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "st_gram_info": [ctypes.POINTER(ctypes.c_int)],
     "st_tv": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "st_tv_grad": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "st_tv_info": [ctypes.POINTER(ctypes.c_int)],

@@ -13,9 +13,11 @@ launcher's name and the shape its operations and bytes follow from:
 - ``conv3x3_bwd_data``: ``(H, W, K, N, unpool, dy, in_mask, pre_add,
   pre_gate, add, gate, tile)``, K the cotangent's channels and N the
   output's, which operands are given, and the tile as above;
-- ``gram``: ``(M, C, W, clo, chi)``, M the rows summed (a row window's
-  span), and the column window (0, 0, 0: none);
-- ``gram_fs``: ``(M, C, W, clo, chi, relu_gate, bf16 out)``;
+- ``gram``: ``(M, C, W, clo, chi, cfg)``, M the rows summed (a row
+  window's span), the column window (0, 0, 0: none), and the configuration
+  the launch took, ``gram_config(M, C)`` (a key of :data:`GRAM_CONFIGS`);
+- ``gram_fs``: ``(M, C, W, clo, chi, relu_gate, bf16 out, cfg)``, ``cfg``
+  the width of its output tiles, ``gram_fs_width(M, C)`` (64 or 128);
 - ``tv``, ``tv_grad``: ``(H, W*C, C)``; ``sse``, ``scale_cast``:
   ``(elements, bytes per element)``;
 - ``block1_fwd``, ``block1_bwd``: ``(H, W, full)``, ``full`` with conv1_1;
@@ -43,6 +45,7 @@ Only CUDA tensors get here; nothing in this module runs on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -120,26 +123,96 @@ def conv_tile(h: int, w: int, n: int) -> int:
     return 1 if 4 * conv_blocks(1, h, w, n) >= 3 * SM_COUNT else 2
 
 
-#: Rows of F staged per step by ``csrc/gram.cu`` (its ``GR``); a chunk of
-#: rows is a multiple of it.
+#: Rows of F one step of ``csrc/gram.cu``'s F^T F kernel multiplies (its
+#: ``GR``, a stage of its ring): the unit its blocks split the rows by; and
+#: the rows of an F S tile (its ``FS_BM``). ``selfcheck.gram_model_matches``
+#: holds both against the built library (``st_gram_info``).
 GRAM_ROW_STEP = 64
-#: Blocks the Gram's first pass should at least have: two per SM.
-GRAM_MIN_BLOCKS = 2 * SM_COUNT
+GRAM_FS_ROWS = 128
+#: The configurations of the F^T F kernel: index -> (edge of its output
+#: tiles, rows in chunks). Stream-K (not in chunks): the blocks split the
+#: (tile, step) pairs evenly, each a contiguous run. In chunks: a block a
+#: tile of a chunk of rows, the chunk's blocks side by side over its rows.
+GRAM_CONFIGS = {0: (64, False), 1: (128, False), 2: (128, True)}
+#: Least steps of :data:`GRAM_ROW_STEP` rows a block of the F^T F kernel takes.
+GRAM_MIN_STEPS = 2
+#: Up to this many elements of F (4 MiB of bf16) the F^T F kernel takes
+#: 64-wide tiles at any c.
+GRAM_SMALL_ELEMENTS = 1 << 21
 
 
-def gram_tiles(c: int) -> int:
-    """64x64 tiles of the (c, c) Gram on and above the diagonal."""
-    t = c // 64
+def gram_config(m: int, c: int) -> int:
+    """The F^T F configuration for an (m, c) activation, by shape alone (a
+    key of :data:`GRAM_CONFIGS`): 64-wide tiles (one warpgroup on m64n64)
+    where c is not a multiple of 128 (c = 64: the whole Gram one tile) or F
+    is small (:data:`GRAM_SMALL_ELEMENTS`); else 128-wide tiles (two
+    warpgroups, an m64n128 product each), in chunks of rows where the Gram
+    has from 2 to as many tiles as the card has SMs (c = 256 .. 1920), else
+    split evenly (one tile, or more tiles than SMs). Timed on an H100
+    (``PERF.md`` §6): the chunks took 256 channels at 262144 rows
+    from 89 to 59 us, 512 at 65536 from 84 to 40 and 1024 at 16384 from 55
+    to 40; 128-wide tiles beat 64-wide ones at c = 128 from 65536 rows
+    (0.0125 against 0.0136 ms) and at every c from 16384 x 256 up; below,
+    at 2-10 us a launch, 64-wide tiles won by 0.1-2 us or tied."""
+    if c % 128 or m * c <= GRAM_SMALL_ELEMENTS:
+        return 0
+    return 2 if 1 < gram_tiles(c, 128) <= SM_COUNT else 1
+
+
+def gram_tiles(c: int, tile: int = 64) -> int:
+    """tile x tile tiles of the (c, c) Gram on and above the diagonal."""
+    t = c // tile
     return t * (t + 1) // 2
 
 
-def gram_rows_per_chunk(m: int, c: int) -> int:
-    """Rows of the (m, c) activation that one block of the Gram's first pass
-    sums: the largest multiple of :data:`GRAM_ROW_STEP` that still gives
-    :data:`GRAM_MIN_BLOCKS` blocks (tiles x chunks), and one step where ``m``
-    is too small for that."""
-    want = -(-GRAM_MIN_BLOCKS // gram_tiles(c))
-    return max(GRAM_ROW_STEP, m // want // GRAM_ROW_STEP * GRAM_ROW_STEP)
+def gram_chunks(m: int, c: int) -> int:
+    """Chunks of rows of the F^T F kernel for an (m, c) activation (0: the
+    stream-K split): as many as the SMs hold a block for each tile of a
+    chunk, each chunk :data:`GRAM_MIN_STEPS` steps or more where m allows."""
+    tile, chunked = GRAM_CONFIGS[gram_config(m, c)]
+    if not chunked:
+        return 0
+    steps = -(-m // GRAM_ROW_STEP)
+    return max(1, min(SM_COUNT // gram_tiles(c, tile), steps // GRAM_MIN_STEPS))
+
+
+def gram_blocks(m: int, c: int) -> int:
+    """Blocks of the F^T F kernel for an (m, c) activation: in chunks, the
+    tiles times the chunks; else one an SM, as long as each takes
+    :data:`GRAM_MIN_STEPS` steps of the (tile, step) pairs. Also the partial
+    tiles its scratch holds: a tile's first piece goes into the output, and
+    a block writes at most one other piece (stream-K: where its run starts
+    inside a tile, in slot block - 1; in chunks: its own, in slot block)."""
+    tile = GRAM_CONFIGS[gram_config(m, c)][0]
+    chunks = gram_chunks(m, c)
+    if chunks:
+        return chunks * gram_tiles(c, tile)
+    work = gram_tiles(c, tile) * -(-m // GRAM_ROW_STEP)
+    return max(1, min(SM_COUNT, work // GRAM_MIN_STEPS))
+
+
+@functools.lru_cache(maxsize=256)
+def _gram_plan(m: int, c: int) -> Tuple[int, int, int, int]:
+    """(configuration, tile edge, blocks, chunks) of the F^T F kernel for an
+    (m, c) activation, worked out once per shape: a step launches the same
+    few shapes every time."""
+    cfg = gram_config(m, c)
+    return cfg, GRAM_CONFIGS[cfg][0], gram_blocks(m, c), gram_chunks(m, c)
+
+
+def gram_fs_width(m: int, c: int) -> int:
+    """The F S configuration for an (m, c) activation, by shape alone: the
+    width of its :data:`GRAM_FS_ROWS`-row output tiles, 128 where c is a
+    multiple of 256 or more of 128 and the 128-wide tiles outnumber the
+    SMs, else 64. Timed on an H100 (``PERF.md`` §6): at c = 128,
+    64-wide tiles won by 2-5% from 16384 to 262144 rows and tied at 2^20;
+    with as many 128-wide tiles as SMs or fewer (4096 x 256, 256 .. 4096 x
+    512), 64-wide ones won by 0.3-4.7 us, the gated output the most; with
+    more, 128-wide ones won by 3-35% (fp32, bf16 and gated), but for the
+    bf16 output at 262144 x 256 (7% the other way)."""
+    if c % 128 or c == 128:
+        return 64
+    return 128 if -(-m // GRAM_FS_ROWS) * (c // 128) > SM_COUNT else 64
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -319,12 +392,12 @@ def gram(
         raise ValueError(f"Gram channels must be a multiple of 64, got {c}")
     win = _window(cols, m)
     lib = library()
-    chunk = gram_rows_per_chunk(m, c)
-    part = torch.empty((-(-m // chunk), c, c), dtype=torch.float32, device=f.device)
+    cfg, tile, blocks, chunks = _gram_plan(m, c)
+    part = torch.empty((blocks, tile, tile), dtype=torch.float32, device=f.device)
     out = torch.empty((c, c), dtype=torch.float32, device=f.device)
-    err = lib.st_gram(_ptr(f), _ptr(part), _ptr(out), m, c, chunk, *win, _stream())
+    err = lib.st_gram(_ptr(f), _ptr(part), _ptr(out), m, c, tile, blocks, chunks, *win, _stream())
     _check_launch(lib, err, "gram")
-    count.add("gram", (m, c) + win)
+    count.add("gram", (m, c) + win + (cfg,))
     return out
 
 
@@ -352,11 +425,12 @@ def gram_fs(
         out[end:].zero_()
     fw, ow = f[first:end], out[first:end]
     win = _window(cols, end - first)
+    width = gram_fs_width(end - first, c)
     lib = library()
     err = lib.st_gram_fs(_ptr(fw), _ptr(s), None if half else _ptr(ow), _ptr(ow) if half else None,
-                         int(relu_gate), end - first, c, *win, _stream())
+                         int(relu_gate), end - first, c, width, *win, _stream())
     _check_launch(lib, err, "gram_fs")
-    count.add("gram_fs", (end - first, c) + win + (relu_gate, half))
+    count.add("gram_fs", (end - first, c) + win + (relu_gate, half, width))
     return out
 
 

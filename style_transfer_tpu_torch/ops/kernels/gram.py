@@ -5,10 +5,10 @@ Counterpart of ``style_transfer_tpu/ops/pallas/gram.py`` (``pallas_gram``,
 activations -> ``(C, C)`` fp32 Gram normalized by ``M = N*H*W``; the VJP is
 ``dF = F (g + g^T) / M`` in the activation's dtype.
 
-On a CUDA tensor both directions run on ``csrc/gram.cu`` (bf16 ``mma.sync``
-on the tensor cores): the forward sums per-block partial tiles over chunks of
-rows, upper triangle only, and adds them in a fixed order in a second pass —
-the kernel the chain's fused Grams use, here without a column window; the
+On a CUDA tensor both directions run on ``csrc/gram.cu`` (bf16 warpgroup MMA
+fed by TMA): the forward sums partial tiles over each block's run of rows,
+upper triangle only, and adds them in a fixed order in a second pass — the
+kernel the chain's fused Grams use, here without a column window; the
 backward is its ``F S`` kernel with ``S = (g + g^T) / M`` rounded to bf16, as
 the chain's wrappers round it, and one bf16 rounding of the result. It takes
 bf16 activations with C a multiple of 64 (every VGG width, and ResNet-50's

@@ -4,8 +4,9 @@ The launchers of ``csrc/conv3x3.cu`` and ``csrc/gram.cu`` (``_launch.
 conv3x3_fwd``, ``conv3x3_bwd_data``, ``gram``, ``gram_fs``) are called
 directly, one option at a time, at sizes that are ragged against every tile
 (10x6, 26x12, 62x90, 128x136), with the odd channel counts of conv1_1
-(K = 3, N = 3), and Grams from 60 to 262144 rows with and without a column
-window. Each conv case runs once on the tile the chooser gives it (at
+(K = 3, N = 3), and Grams from 60 to 262144 rows at 64-512 channels and
+up to 16384 rows at 1024 and 2048, over all rows, a column window and a row
+span. Each conv case runs once on the tile the chooser gives it (at
 these ragged sizes always a small ``mma.sync`` tile) and once more on every
 tile configuration that serves its output channels, forced through the
 launcher's ``tile`` argument (``tile<i>:<case>``), so the warpgroup tile
@@ -57,8 +58,20 @@ BWD_CHANNELS = ((64, 3), (64, 64), (128, 256), (512, 512))
 #: backward-data options, one or two at a time
 BWD_MODES = ("bare", "unpool", "in_mask", "unpool_in_mask", "pre_add", "pre_add_no_dy",
              "pre_gate", "pre_add_pre_gate_unpool", "add_gate")
-GRAM_ROWS = ((60, 6, 1, 4), (4096, 64, 8, 56), (65536, 256, 8, 248), (262144, 512, 8, 504))
+#: Gram rows M, a column window (W, clo, chi) and a row span (lo, hi) of
+#: image rows W wide: M = 60, 5000 and 131080 are ragged against the 64-row
+#: steps and 128-row tiles of ``csrc/gram.cu``; F^T F takes 64-wide tiles
+#: while F holds at most 2^21 elements and, beyond, its rows in chunks at
+#: 256-1024 channels (``_launch.gram_config``); F S 64-wide tiles at 128
+#: channels and at few rows (``_launch.gram_fs_width``)
+GRAM_ROWS = ((60, 6, 1, 4, 1, 9), (4096, 64, 8, 56, 3, 61), (5000, 40, 3, 37, 7, 118),
+             (65536, 256, 8, 248, 100, 250), (131080, 40, 3, 37, 7, 3270),
+             (262144, 512, 8, 504, 5, 500))
 GRAM_CHANNELS = (64, 128, 256, 512)
+#: ResNet-50's widths, at fewer rows (its 2048^2 cell's are 16384 and 4096)
+GRAM_WIDE_ROWS = ((60, 6, 1, 4, 1, 9), (5000, 40, 3, 37, 7, 118), (16384, 128, 3, 125, 10, 120))
+GRAM_WIDE_CHANNELS = (1024, 2048)
+GRAM_SPANS = ("all", "window", "span")
 BLOCK1_SIZES = SIZES + ((210, 300),)
 BLOCK1_COTANGENTS = ("pool", "gram", "both")
 SSE_COUNTS = (1, 7, 8, 9, 2047, 2048, 2049, 64 * 64, 512 * 512, 8388608, 8388611)
@@ -93,9 +106,10 @@ def forced_conv_cases():
 
 
 def gram_cases():
-    return [f"{kind}-{m}x{c}-{'window' if win else 'all'}"
-            for kind in ("gram", "fs32", "fs16", "fs16gated") for (m, _, _, _) in GRAM_ROWS
-            for c in GRAM_CHANNELS for win in (False, True)]
+    shapes = [(r[0], c) for r in GRAM_ROWS for c in GRAM_CHANNELS]
+    shapes += [(r[0], c) for r in GRAM_WIDE_ROWS for c in GRAM_WIDE_CHANNELS]
+    return [f"{kind}-{m}x{c}-{which}" for kind in ("gram", "fs32", "fs16", "fs16gated")
+            for (m, c) in shapes for which in GRAM_SPANS]
 
 
 def _rel(a, b) -> float:
@@ -204,26 +218,32 @@ def run_conv_bwd(name: str, dev, tile=None) -> dict:
 
 def run_gram(name: str, dev) -> dict:
     """One Gram case: ``F^T F`` (gram), ``F S`` in fp32 (fs32), in bf16
-    (fs16) or ReLU-gated in bf16 (fs16gated), over all rows or a column window."""
+    (fs16) or ReLU-gated in bf16 (fs16gated), over all rows, a column window
+    or a row span."""
     kind, shape, which = name.split("-")
     m, c = (int(v) for v in shape.split("x"))
-    cols = next((wc, lo, hi) for (rows, wc, lo, hi) in GRAM_ROWS if rows == m) if which == "window" else None
+    _, wc, clo, chi, lo, hi = next(r for r in GRAM_ROWS + GRAM_WIDE_ROWS if r[0] == m)
+    cols = (wc, clo, chi) if which == "window" else None
+    rows = (wc, lo, hi) if which == "span" else None
     gen, bf = _gen(name, dev), torch.bfloat16
     f = torch.randn(m, c, generator=gen, device=dev).to(bf)
     owned = f
     if cols is not None:
-        col = torch.arange(m, device=dev) % cols[0]
-        owned = f * ((col >= cols[1]) & (col < cols[2])).to(bf)[:, None]
+        col = torch.arange(m, device=dev) % wc
+        owned = f * ((col >= clo) & (col < chi)).to(bf)[:, None]
+    if rows is not None:
+        row = torch.arange(m, device=dev) // wc
+        owned = f * ((row >= lo) & (row < hi)).to(bf)[:, None]
     count = LaunchCount()
     if kind == "gram":
-        outs = [_launch.gram(f, count=count, cols=cols) for _ in range(2)]
+        outs = [_launch.gram(f, count=count, cols=cols, rows=rows) for _ in range(2)]
         f32 = owned.float()
         errors = [_entry("gram", outs[0], (owned.T @ owned).float(), f32.T @ f32, TOL_GRAM)]
     else:
         s = (torch.randn(c, c, generator=gen, device=dev) / c ** 0.5).to(bf)
         gated, half = kind == "fs16gated", kind != "fs32"
-        outs = [_launch.gram_fs(f, s, count=count, relu_gate=gated, out_bf16=half, cols=cols)
-                for _ in range(2)]
+        outs = [_launch.gram_fs(f, s, count=count, relu_gate=gated, out_bf16=half, cols=cols,
+                                rows=rows) for _ in range(2)]
         ref, plain = owned.float() @ s.float(), (owned @ s).float()
         if gated:
             zero = torch.zeros_like(ref)
@@ -377,6 +397,15 @@ def run_case(name: str, dev) -> dict:
 def all_cases():
     return (conv_fwd_cases() + conv_bwd_cases() + forced_conv_cases() + gram_cases()
             + block1_cases() + loss_cases())
+
+
+def gram_model_matches(lib) -> bool:
+    """Whether the wrapper's model of ``csrc/gram.cu`` (rows a step of F^T
+    F, rows of an F S tile) is the built library's."""
+    import ctypes
+
+    got = (ctypes.c_int * 2)()
+    return not lib.st_gram_info(got) and list(got) == [_launch.GRAM_ROW_STEP, _launch.GRAM_FS_ROWS]
 
 
 def loss_model_matches(lib) -> bool:

@@ -7,7 +7,7 @@ backward-data weight layout against a numpy reference and its inverse, the
 once-per-tensor weight cache, the tile chooser and its shared-memory model
 for every conv shape of VGG-19 at scales 256 to 8192 wide (the warpgroup
 tile for every wide conv of the 2048^2 chain), the forced-tile edge cases,
-and the Gram's rows per chunk.
+and the Gram kernels' configurations, blocks and scratch.
 """
 
 import numpy as np
@@ -231,18 +231,152 @@ def test_selfcheck_forces_every_conv_case_on_every_tile():
     assert set(forced) <= set(selfcheck.all_cases())
 
 
-@pytest.mark.parametrize("c", [64, 128, 256, 512])
+#: (M, C) of the Grams of one 2048^2 step (VGG-19: conv1_1 .. conv5_1;
+#: ResNet-50: conv1, layer1 .. layer4), each with the configuration the
+#: choosers give it: the F^T F configuration (``GRAM_CONFIGS``: 64-wide
+#: tiles, 128-wide, 128-wide with the rows in chunks where the Gram has 2 to
+#: 132 tiles) and the F S tile width, and the F^T F kernel's blocks
+GRAM_STEP_SHAPES = [
+    ((2048 * 2048, 64), (0, 64, 132)), ((1024 * 1024, 128), (1, 64, 132)),
+    ((512 * 512, 256), (2, 128, 132)), ((256 * 256, 512), (2, 128, 130)),
+    ((128 * 128, 512), (2, 128, 130)), ((1024 * 1024, 64), (0, 64, 132)),
+    ((512 * 512, 256), (2, 128, 132)), ((256 * 256, 512), (2, 128, 130)),
+    ((128 * 128, 1024), (2, 128, 108)), ((64 * 64, 2048), (1, 128, 132)),
+]
+
+
+def _gram_work(m, c):
+    tile = _launch.GRAM_CONFIGS[_launch.gram_config(m, c)][0]
+    tiles = _launch.gram_tiles(c, tile)
+    return tile, tiles, tiles * -(-m // _launch.GRAM_ROW_STEP)
+
+
+@pytest.mark.parametrize("c", [64, 128, 256, 512, 1024, 2048])
 @pytest.mark.parametrize("m", [60, 1024, 4096, 16384, 65536, 262144, 1048576, 4194304])
 def test_gram_rows_per_chunk_fills_the_card_or_covers_m(m, c):
-    rows = _launch.gram_rows_per_chunk(m, c)
-    assert rows >= _launch.GRAM_ROW_STEP and rows % _launch.GRAM_ROW_STEP == 0
-    chunks = -(-m // rows)
-    assert chunks * rows >= m and chunks <= 65535
-    blocks = chunks * _launch.gram_tiles(c)
-    assert blocks >= _launch.GRAM_MIN_BLOCKS or rows == _launch.GRAM_ROW_STEP
-    # scratch stays small beside the activation: at most 16 MiB of partials
-    assert chunks * c * c * 4 <= 16 * 2**20 or rows == _launch.GRAM_ROW_STEP
+    """The F^T F kernel's blocks: split evenly, a contiguous run of the
+    (tile, 64-row step) pairs each, one an SM unless a block would take
+    fewer than GRAM_MIN_STEPS steps, never more blocks than steps; in
+    chunks of rows, a block a tile of a chunk, as many chunks of
+    GRAM_MIN_STEPS steps or more as the SMs hold. At most one partial tile
+    a block, 16 MiB in all."""
+    tile, tiles, work = _gram_work(m, c)
+    blocks, chunks = _launch.gram_blocks(m, c), _launch.gram_chunks(m, c)
+    assert 1 <= blocks <= _launch.SM_COUNT
+    if chunks:
+        steps = work // tiles
+        assert blocks == chunks * tiles and chunks <= steps
+        # as many chunks as fill the SMs, unless m leaves fewer steps
+        fewer = max(1, steps // _launch.GRAM_MIN_STEPS)
+        assert blocks + tiles > _launch.SM_COUNT or chunks == fewer
+    else:
+        assert blocks <= work
+        assert blocks == _launch.SM_COUNT or blocks == max(1, work // _launch.GRAM_MIN_STEPS)
+    # scratch stays small beside the activation: a partial tile a block, at
+    # most 16 MiB
+    assert blocks * tile * tile * 4 <= 16 * 2**20
 
 
 def test_gram_tiles_count_the_upper_triangle():
     assert [_launch.gram_tiles(c) for c in (64, 128, 256, 512)] == [1, 3, 10, 36]
+    assert [_launch.gram_tiles(c, 128) for c in (128, 256, 512, 1024, 2048)] == [1, 3, 10, 36, 136]
+
+
+@pytest.mark.parametrize("shape,cfg", GRAM_STEP_SHAPES)
+def test_gram_step_shapes_take_their_configuration(shape, cfg):
+    """Each Gram of a 2048^2 step of either network lands on the intended
+    configuration: F^T F on 64-wide tiles at 64 channels (the whole Gram one
+    tile, one warpgroup), 128 elsewhere, the rows in chunks from 256 to 1024
+    channels; F S 64 wide up to 128 channels, 128 from 256; one F^T F block
+    an SM, or the chunks' blocks (130 of 10 tiles, 108 of 36)."""
+    m, c = shape
+    assert (_launch.gram_config(m, c), _launch.gram_fs_width(m, c),
+            _launch.gram_blocks(m, c)) == cfg
+    assert _launch._gram_plan(m, c)[:2] == (cfg[0], _launch.GRAM_CONFIGS[cfg[0]][0])
+
+
+#: (M, C) of the Grams of a VGG-19 ladder's 256, 512 and 1024 px scales
+#: (conv1_1 .. conv5_1) and the configurations (F^T F, F S width) that were
+#: fastest there on an H100, or within 0.2 us of it (``PERF.md`` §6)
+GRAM_LADDER_SHAPES = [
+    ((65536, 64), (0, 64)), ((16384, 128), (0, 64)), ((4096, 256), (0, 64)),
+    ((1024, 512), (0, 64)), ((256, 512), (0, 64)),
+    ((262144, 64), (0, 64)), ((65536, 128), (1, 64)), ((16384, 256), (2, 128)),
+    ((4096, 512), (0, 64)), ((1024, 512), (0, 64)),
+    ((1048576, 64), (0, 64)), ((262144, 128), (1, 64)), ((65536, 256), (2, 128)),
+    ((16384, 512), (2, 128)), ((4096, 512), (0, 64)),
+]
+
+
+@pytest.mark.parametrize("shape,cfg", GRAM_LADDER_SHAPES)
+def test_gram_ladder_shapes_take_the_fastest_configuration(shape, cfg):
+    """The choosers send the ladder's smaller Grams where the card ran them
+    fastest: 64-wide F^T F tiles while F holds at most 2^21 elements, 64-wide
+    F S tiles at 128 channels and while the 128-wide ones would not
+    outnumber the SMs."""
+    m, c = shape
+    assert (_launch.gram_config(m, c), _launch.gram_fs_width(m, c)) == cfg
+
+
+@pytest.mark.parametrize("c", range(64, 2049, 64))
+def test_gram_scratch_bound_holds_at_every_width(c):
+    for m in (60, 4096, 16384, 262144, 4194304):
+        tile = _launch.GRAM_CONFIGS[_launch.gram_config(m, c)][0]
+        assert c % tile == 0 and c % _launch.gram_fs_width(m, c) == 0
+        assert _launch.gram_blocks(m, c) * tile * tile * 4 <= 16 * 2**20
+
+
+def _block_of(x, blocks, work):
+    # csrc/gram.cu's block_of: the largest b with b * work // blocks <= x
+    return ((x + 1) * blocks + work - 1) // work - 1
+
+
+def _pieces(m, c):
+    """csrc/gram.cu's split of F^T F, modelled step by step: for each tile,
+    its pieces in the order the reduce pass adds them, as (block, steps,
+    where the piece lies: "out" or a slot)."""
+    tile, tiles, work = _gram_work(m, c)
+    blocks, chunks, steps = _launch.gram_blocks(m, c), _launch.gram_chunks(m, c), work // tiles
+    by_tile = {t: [] for t in range(tiles)}
+    if chunks:
+        assert blocks == chunks * tiles
+        for b in range(blocks):  # a block a tile of a chunk; the chunks in order
+            z, t = divmod(b, tiles)
+            run = list(range(z * steps // chunks, (z + 1) * steps // chunks))
+            assert run
+            by_tile[t].append((b, run, "out" if z == 0 else b))
+        return by_tile
+    for b in range(blocks):
+        lo, hi = b * work // blocks, (b + 1) * work // blocks
+        assert lo < hi
+        for t in range(lo // steps, (hi - 1) // steps + 1):
+            start, end = max(lo, t * steps), min(hi, (t + 1) * steps)
+            # a tile's first piece goes to the output, the block's other (its
+            # first, starting inside a tile) to slot b - 1
+            where = "out" if start == t * steps else b - 1
+            assert where == "out" or start == lo
+            by_tile[t].append((b, list(range(start - t * steps, end - t * steps)), where))
+    for t, pieces in by_tile.items():  # the reduce's range of blocks
+        first = _block_of(t * steps, blocks, work)
+        last = _block_of((t + 1) * steps - 1, blocks, work)
+        assert [p[0] for p in pieces] == list(range(first, last + 1))
+    return by_tile
+
+
+@pytest.mark.parametrize("m,c", [(60, 64), (5000, 256), (65536, 512), (16384, 1024),
+                                 (4096, 2048), (1024, 512), (64, 2048), (4194304, 64),
+                                 (262144, 256), (131080, 512), (65536, 512)])
+def test_gram_pieces_are_numbered_without_gaps_or_collisions(m, c):
+    """Every step of every tile is summed exactly once, its first piece
+    into the output and each other piece into a slot of its own below
+    gram_blocks (the scratch's partial tiles), in the order the reduce pass finds them (stream-K: the
+    blocks from block_of(the tile's first step) to block_of(its last);
+    chunked: chunk by chunk, chunk z's in slot z tiles + t)."""
+    tile, tiles, work = _gram_work(m, c)
+    by_tile, slots = _pieces(m, c), []
+    for t in range(tiles):
+        pieces = by_tile[t]
+        assert pieces[0][2] == "out" and all(p[2] != "out" for p in pieces[1:])
+        assert sorted(k for p in pieces for k in p[1]) == list(range(work // tiles))
+        slots += [p[2] for p in pieces[1:]]
+    assert len(set(slots)) == len(slots) and all(0 <= s < _launch.gram_blocks(m, c) for s in slots)

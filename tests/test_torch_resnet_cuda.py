@@ -424,3 +424,62 @@ def test_cuda_conv1x1_tile_is_the_built_librarys(cuda_device):
         assert minb == _launch.CONV1X1_BLOCKS_PER_SM and minb * smem <= 228 * 1024
     assert library().st_conv1x1_info(96, out) != 0
     assert _weights.gemm_operand(torch.zeros(7, 7, 3, 64)).shape == (R.STEM_COLUMNS, 64)
+
+
+# (M, C) of ResNet-50's Grams at the 2048^2 cell, then ragged rows at its
+# widest channels
+GRAMS = {"conv1": (1024 * 1024, 64), "layer1": (512 * 512, 256), "layer2": (256 * 256, 512),
+         "layer3": (128 * 128, 1024), "layer4": (64 * 64, 2048), "odd_1024": (37 * 23, 1024),
+         "odd_2048": (5 * 7, 2048)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GRAMS))
+def test_cuda_gram_matches_fp32_and_repeats_bit_for_bit(name, cuda_device):
+    """``pallas_gram`` (``csrc/gram.cu``: F^T F / M forward, the bf16 ``F (g
+    + g^T) / M`` backward) at ResNet-50's Gram shapes: the Gram within
+    TOL_GRAM and the activation's gradient within TOL_ACT of fp32, each no
+    less accurate than the same products in plain bf16; two calls give the
+    same bits; each launch's counted shape ends with the configuration the
+    choosers give its (M, C)."""
+    from style_transfer_tpu_torch import trace
+    from style_transfer_tpu_torch.ops.kernels import gram as KG
+
+    m, c = GRAMS[name]
+    g = torch.Generator(device=cuda_device).manual_seed(m + c)
+    f = torch.relu(torch.randn(1, 1, m, c, generator=g, device=cuda_device)).to(torch.bfloat16)
+    ct = torch.randn(c, c, generator=g, device=cuda_device) * 1e-3
+
+    def run():
+        x = f.detach().requires_grad_(True)
+        gram = KG.pallas_gram(x)
+        (dx,) = torch.autograd.grad(gram, x, ct)
+        return gram, dx
+
+    trace.clear()
+    with trace.recording():
+        g1, d1 = run()
+    keys = {kernel: shape for (_, kernel, shape) in trace.counts()}
+    trace.clear()
+    g2, d2 = run()
+    f2 = f.view(m, c)
+    ref = f2.float().T @ f2.float() / m
+    plain = (f2.T @ f2).float() / m
+    sym = (ct + ct.T) / m
+    dref = f2.float() @ sym.to(torch.bfloat16).float()
+    dplain = (f2 @ sym.to(torch.bfloat16)).float()
+    assert T.within(_rel(g1, ref), _rel(plain, ref), T.TOL_GRAM), (_rel(g1, ref), _rel(plain, ref))
+    assert T.within(_rel(d1.view(m, c), dref), _rel(dplain, dref), T.TOL_ACT)
+    assert torch.equal(g1, g2) and torch.equal(d1, d2)
+    assert keys["gram"][-1] == _launch.gram_config(m, c)
+    assert keys["gram_fs"][-1] == _launch.gram_fs_width(m, c)
+
+
+@pytest.mark.cuda
+def test_cuda_gram_model_is_the_built_librarys(cuda_device):
+    """The Gram launchers' rows per step and per F S tile are those compiled
+    into ``csrc/gram.cu``."""
+    from style_transfer_tpu_torch.ops.kernels import selfcheck
+    from style_transfer_tpu_torch.ops.kernels._build import library
+
+    assert selfcheck.gram_model_matches(library())
